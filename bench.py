@@ -1,86 +1,54 @@
-"""Headline benchmark: full particle-filter step throughput at 2^20
-particles on one TPU chip.
+"""Headline benchmark: fused particle-filter step throughput at 2^20
+particles on one accelerator.
 
 Prints ONE JSON line:
-  {"metric": ..., "value": N, "unit": ..., "vs_baseline": N}
+  {"metric": ..., "value": N, "unit": ..., "vs_baseline": N, "device": {...}}
 
 vs_baseline is the speedup over the regenerated CPU reference number in
 bench_baseline.json (the reference repo publishes no absolute numbers;
-see BASELINE.md). The full step = predict (vmapped bioreactor dynamics +
-mixture noise) + update (measurement pdf weighting) + systematic
-resample, fused in a single jit — the hot op of the closed-loop rig
+see BASELINE.md). The full step = predict (bioreactor dynamics + mixture
+noise) + update (measurement pdf weighting) + systematic resample of the
+structure-of-arrays state (filters/particle_tiled.py), fused in a single
+jit — the hot op of the closed-loop rig
 (cf. /root/reference/results/pf_openloop/pf_run_seq.py).
 
-Measurement honesty: the relay serves repeated (executable, inputs)
-pairs from a cache that persists across processes, so the chain is
-seeded from the wall clock (fresh values every invocation) and the
-metric is the median of per-call timings with the state chained call to
-call. Deterministic-seed chains measured up to 500x faster than the
-hardware can execute them.
+The step time is the mean over a chained loop of REPS steps with one
+final ``block_until_ready``; compilation and one warm-up step come
+first. Refuses to run without an accelerator: a CPU number is not this
+benchmark's metric.
+
+Run on the card: ``python bench.py``.
 """
+import functools
 import json
 import os
 import sys
 import time
 
-os.makedirs(os.path.join(os.path.dirname(__file__) or ".", ".jax_cache"), exist_ok=True)
-
-import jax  # noqa: E402
-
-jax.config.update(
-    "jax_compilation_cache_dir",
-    os.path.join(os.path.dirname(os.path.abspath(__file__)), ".jax_cache"),
-)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-
-import functools  # noqa: E402
-
-import jax.numpy as jnp  # noqa: E402
-import numpy as np  # noqa: E402
-
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from gpu_se_tpu.distributions import GaussianSum  # noqa: E402
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from gpu_se_tpu.config import REPO_ROOT, enable_compile_cache  # noqa: E402
 from gpu_se_tpu.filters import particle_tiled as pft  # noqa: E402
 from gpu_se_tpu.models import bioreactor as bio  # noqa: E402
+from gpu_se_tpu.sim import filter_rig  # noqa: E402
 
 N = 2**20
 REPS = 30
 
 
 def main():
-    x_ss = np.array([280 / 180, 640 / 24.6, 1000 / 116, 0.0, 0.0])
-    x0 = GaussianSum.create(
-        np.stack([x_ss, x_ss]),
-        np.stack([np.eye(5) * 1e-4, np.eye(5) * 1e-3]),
-        np.array([0.75, 0.25]),
-    )
-    state_pdf = GaussianSum.create(
-        np.zeros((2, 5)),
-        np.stack(
-            [
-                np.diag([1e-4, 1e-7, 1e-3, 1e-3, 1e-7]),
-                np.diag([1e-3, 1e-6, 1e-2, 1e-2, 1e-6]),
-            ]
-        ),
-        np.array([0.75, 0.25]),
-    )
-    meas_pdf = GaussianSum.create(
-        np.array([[1e-1, 0], [0, -1e-1]]),
-        np.array([[[6e-2, 0], [0, 8e-2]], [[500, 100], [100, 700]]]),
-        np.array([0.85, 0.15]),
-    )
-
-    # round-5 production fused step: the PF state lives in the v4
-    # kernel's (T, 1024) tiled layout across steps (the lanes-last SoA
-    # path, filters/particle_tiled.py) — no per-step layout transposes
+    dev = jax.devices()[0]
+    if dev.platform == "cpu":
+        sys.exit("bench.py: JAX found no accelerator")
+    enable_compile_cache()
+    x0, state_pdf, meas_pdf, u, z = filter_rig()
     f = functools.partial(bio.homeostatic_des, xp=jnp)
     g = functools.partial(bio.static_outputs, xp=jnp)
-    u = jnp.array([0.06, 0.2])
-    z = jnp.asarray(bio.static_outputs(x_ss, np.asarray(u), xp=np), jnp.float32)
 
-    seed = int(time.time() * 1000) % (2**31)  # fresh chain every run
+    seed = int(time.time() * 1000) % (2**31)
     state = pft.init(jax.random.PRNGKey(seed), N, x0)
 
     @jax.jit
@@ -91,29 +59,29 @@ def main():
 
     # compile + warmup
     state = step(state)
-    jax.block_until_ready(state.tiled)
+    jax.block_until_ready(state.x)
 
-    # one timed chained loop with a single final block: per-call blocking
-    # pays the ~25 ms relay sync RTT every call, while the chained queue's
-    # backpressure makes the amortized per-step time track device time
     t0 = time.perf_counter()
     for _ in range(REPS):
         state = step(state)
-    jax.block_until_ready(state.tiled)
+    jax.block_until_ready(state.x)
     steps_per_s = REPS / (time.perf_counter() - t0)
 
-    with open(
-        os.path.join(os.path.dirname(os.path.abspath(__file__)), "bench_baseline.json")
-    ) as fh:
+    with open(os.path.join(REPO_ROOT, "bench_baseline.json")) as fh:
         baseline = json.load(fh)["pf_step_2e20_cpu_steps_per_s"]
 
     print(
         json.dumps(
             {
                 "metric": "pf_full_step_throughput_2^20_particles",
-                "value": round(steps_per_s, 2),
+                "value": steps_per_s,
                 "unit": "steps/s",
-                "vs_baseline": round(steps_per_s / baseline, 1),
+                "vs_baseline": steps_per_s / baseline,
+                "device": {
+                    "platform": dev.platform,
+                    "kind": dev.device_kind,
+                    "count": len(jax.devices()),
+                },
             }
         )
     )

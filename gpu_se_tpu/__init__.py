@@ -1,4 +1,4 @@
-"""gpu_se_tpu — a TPU-native state-estimation and MPC framework.
+"""gpu_se_tpu — an accelerator state-estimation and MPC framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of
 ``AlgorithmicAmoeba/gpu_se`` (GPU-accelerated state estimators for a
@@ -8,7 +8,7 @@ accelerated state estimators — a particle filter and a Gaussian-sum
 unscented Kalman filter — plus a closed-loop simulation harness,
 instrumentation, and a benchmarking methodology.
 
-Design stance (TPU-first, not a port):
+Design stance (a redesign, not a port):
 
 * One functional core instead of CPU/GPU twin classes: every filter is a
   pure function over an explicit state pytree; ``jit``/``vmap`` give the
@@ -19,13 +19,13 @@ Design stance (TPU-first, not a port):
   ``DeterministicGaussianSum`` replay fixture: same key => same draws on
   any backend (cf. /root/reference/gaussian_sum_dist/DeterministicGaussianSum.py:27).
 * The OSQP sparse QP (cf. /root/reference/controller.py:231-236) becomes a
-  condensed **dense** QP solved by matmul-driven ADMM — MXU-friendly,
-  fixed structure at trace time, only ``q``/``l``/``u`` change per step.
+  condensed **dense** QP solved by matmul-driven ADMM — fixed
+  structure at trace time, only ``q``/``l``/``u`` change per step.
 * The hand-written CUDA resampling kernel
   (cf. /root/reference/filter/particle.py:223-263) becomes a vectorized
-  systematic resample (cumsum + searchsorted) with a ``shard_map``
-  multi-chip path (local scan + psum of shard totals) and a Pallas kernel
-  for the fused hot path.
+  systematic resample (cumsum -> integer segment ends -> ancestors ->
+  sorted gather) with a ``shard_map`` multi-device path (segmented scan
+  + exchange of the ends blocks).
 """
 
 __version__ = "0.1.0"

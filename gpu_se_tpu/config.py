@@ -9,8 +9,10 @@ single object.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
+import jax
 import jax.numpy as jnp
 
 
@@ -68,3 +70,24 @@ def build_rig(cfg: SimConfig):
         pf=(cfg.filter.kind == "pf"),
         seed=cfg.filter.seed,
     )
+
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache; return its directory.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already reads it and
+    no directory is set here. Otherwise the cache goes to the fixed path
+    ``<repo>/.jax_cache`` — fixed because the path is part of the cache
+    key. Entries are kept whatever their size, for programs that took at
+    least half a second to compile.
+    """
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        path = os.path.join(REPO_ROOT, ".jax_cache")
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    return jax.config.jax_compilation_cache_dir

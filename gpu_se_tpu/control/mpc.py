@@ -3,7 +3,7 @@
 The reference builds the MPC as a sparse *simultaneous-form* QP over the
 stacked vector [states; outputs; u_-1; input moves] with equality rows
 encoding the velocity-form recursions, and hands it to OSQP in float64
-(/root/reference/controller.py:63-238). The TPU-native redesign applies
+(/root/reference/controller.py:63-238). This redesign applies
 three exact transformations at setup so the per-step solve is small,
 dense, and float32-stable:
 
@@ -244,6 +244,9 @@ class MPC:
         self._extract_fn = jax.jit(_extract)
 
         self.y_predicted = None
+        # True when the last step's QP stopped at max_iter and was accepted
+        # as near-solved (see ``step``)
+        self.near_solved = False
         self._warm_v = jnp.zeros(n_d, dt)
         self._warm_y = jnp.zeros(m, dt)
 
@@ -305,16 +308,15 @@ class MPC:
         status = int(sol.status)
         self.last_solution = sol
         if status != SOLVED:
-            # OSQP-style "solved inaccurate" acceptance (round 5): the
-            # canonical rig tightens the tolerances to 1e-6, but the
-            # TPU's f32 dual residual floors at ~5e-5 on the P=300
-            # problem (prim 7e-9, i.e. fully feasible) — the identical
-            # instance converges on the CPU backend, so this is a
-            # backend numerics floor, not a modeling failure. Accept a
+            # OSQP-style "solved inaccurate" acceptance: the canonical
+            # rig tightens the tolerances to 1e-6, but the float32 dual
+            # residual can floor near 3e-5 on the P=300 problem while
+            # the primal residual is ~1e-9 (fully feasible). Accept a
             # max-iter termination whose residuals meet the CLASS
             # DEFAULT tolerance (1e-4 — itself 10x stricter than the
             # reference's OSQP defaults, /root/reference/controller.py)
-            # instead of failing the control step.
+            # instead of failing the control step; ``near_solved``
+            # records that it happened.
             from gpu_se_tpu.control.qp import QPSettings
 
             eps = max(10.0 * self.qp.settings.eps_abs,
@@ -327,6 +329,7 @@ class MPC:
             if not near:
                 raise ValueError(
                     f"QP solver did not solve the problem! Status: {status}")
+        self.near_solved = status != SOLVED
 
         self._warm_v, self._warm_y = sol.x, sol.y
         ctrl_full = ctrl_unc + np.asarray(ctrl, float)
@@ -335,8 +338,11 @@ class MPC:
 
 
 def _extract(consts, v):
-    """Device-side extraction of the v-dependent control/prediction parts."""
-    return consts["ctrl_map"] @ v, consts["theta0_w"] @ v
+    """Device-side extraction of the v-dependent control/prediction parts,
+    in full float32 (a default-precision GPU matmul may run in TF32)."""
+    hi = jax.lax.Precision.HIGHEST
+    return (jnp.matmul(consts["ctrl_map"], v, precision=hi),
+            jnp.matmul(consts["theta0_w"], v, precision=hi))
 
 
 # ----------------------------------------------------------------------
@@ -376,6 +382,12 @@ def make_device_step(mpc: "MPC"):
     settings = mpc.qp.settings
 
     def step_fn(c, x0, um1, bias, warm_v, warm_y):
+        # every product here in full float32, like the solve itself
+        # (qp._admm_solve): a default-precision GPU matmul may run in TF32
+        with jax.default_matmul_precision("float32"):
+            return _device_step(c, x0, um1, bias, warm_v, warm_y)
+
+    def _device_step(c, x0, um1, bias, warm_v, warm_y):
         def through_q(parts):
             qx, qu, qb, q0 = parts
             return qx @ x0 + qu @ um1 + qb @ bias - q0

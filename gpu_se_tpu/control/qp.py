@@ -1,20 +1,20 @@
-"""Dense ADMM QP solver with OSQP semantics, designed for the MXU.
+"""Dense ADMM QP solver with OSQP semantics, built from dense matmuls.
 
 Solves  min 1/2 x^T P x + q^T x  s.t.  l <= A x <= u.
 
 The reference delegates this to the OSQP C library
 (/root/reference/controller.py:231-267): sparse CSC matrices, a cached
 LDL factorization, warm-started ``update(l, u)`` + ``solve`` per control
-step. The TPU-native re-design keeps the algorithm (ADMM with Ruiz
+step. The re-design keeps the algorithm (ADMM with Ruiz
 equilibration, per-row rho, relaxation, infeasibility certificates) but
 changes the data layout and the linear solve:
 
 * dense matrices — the MPC QP is condensed first (see ``mpc.py``), so
   n is the control-move count, not the full stacked horizon;
 * the KKT solve ``(P + sigma I + A^T diag(rho) A)^{-1} rhs`` is a
-  precomputed **dense inverse applied by matmul** (one MXU op) plus one
-  step of iterative refinement to recover float32 accuracy — no
-  triangular solves, which serialize on TPU;
+  precomputed **dense inverse applied by matmul** plus one step of
+  iterative refinement to recover float32 accuracy — no triangular
+  solves, which serialize on an accelerator;
 * the iteration loop is a ``lax.while_loop`` with residual/infeasibility
   checks every ``check_every`` iterations, so a solve is a single device
   dispatch and can be vmapped over scenario batches.
@@ -31,7 +31,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from gpu_se_tpu import pytree
 
 # Status codes (OSQP-compatible naming)
 SOLVED = 1
@@ -65,7 +65,7 @@ class QPSettings:
     dtype: jnp.dtype = jnp.float32
 
 
-@struct.dataclass
+@pytree.dataclass
 class QPConstants:
     """Device-resident trace-time constants for a fixed (P, A) pair."""
 
@@ -82,7 +82,7 @@ class QPConstants:
     s_fac: jax.Array  # (m, m) inv(diag(1/rho) + aat / (1 + sigma)) — identity mode
 
 
-@struct.dataclass
+@pytree.dataclass
 class QPSolution:
     x: jax.Array
     y: jax.Array
@@ -266,9 +266,10 @@ def _admm_solve(
 ) -> QPSolution:
     """Precision shim: pins float32 matmul passes around the real solve.
 
-    TPU matmuls default to reduced-precision (bfloat16) passes; the ADMM
-    residuals must be computed in true float32 or the 1e-6 tolerances are
-    unreachable. This is a trace-time context (a ``with`` so an exception
+    A default-precision float32 matmul may run in TF32 on a GPU (a
+    10-bit mantissa, about three decimal digits); the ADMM residuals must
+    be computed in true float32 or the 1e-6 tolerances are unreachable.
+    This is a trace-time context (a ``with`` so an exception
     mid-trace cannot leak it), pinning every matmul the solver emits with
     no effect on other code.
     """

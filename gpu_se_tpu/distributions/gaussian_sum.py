@@ -7,7 +7,7 @@ the pdf — mirroring the precomputation in
 /root/reference/gaussian_sum_dist/MultivariateGaussianSum.py:33-37).
 
 All sampling takes an explicit ``jax.random`` key, so determinism-for-tests
-falls out for free: the same key yields the same draws on CPU and TPU.
+falls out for free: the same key yields the same draws on every backend.
 The reference needed a class-level replay cache for that
 (/root/reference/gaussian_sum_dist/DeterministicGaussianSum.py:27-65);
 here :class:`DeterministicGaussianSum` is a thin shell that replays a
@@ -21,62 +21,17 @@ from typing import Tuple, Union
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from gpu_se_tpu import pytree
 
 ShapeLike = Union[int, Tuple[int, ...]]
 
-
-FAST_NOISE = True
-
-
-class fast_noise:
-    """Context manager toggling the rbg noise fast path (trace-time).
-
-    ``fast_noise(False)`` pins the threefry stream on every backend —
-    used by the CPU-vs-TPU shared-key parity gate
-    (scripts/validate_tpu.py --parity), where element-level agreement
-    requires identical streams."""
-
-    def __init__(self, on: bool):
-        self.on = on
-
-    def __enter__(self):
-        global FAST_NOISE
-        self._prev = FAST_NOISE
-        FAST_NOISE = self.on
-
-    def __exit__(self, *exc):
-        global FAST_NOISE
-        FAST_NOISE = self._prev
+# float32 products in full precision: on GPUs a default-precision f32
+# matmul may run in TF32 (~3 decimal digits), which would perturb every
+# noise draw and pdf weight relative to the CPU stream.
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
-def device_fast_key(key: jax.Array) -> jax.Array:
-    """Derive an rbg-impl key from a threefry key ON TPU; identity
-    elsewhere.
-
-    XLA's hardware random-bit generator draws the GSUKF sigma noise
-    3.3x and the PF predict noise 3.7x faster than threefry at the
-    production shapes (scripts/probe_rbg.py, round 5: 1.65 -> 0.50 and
-    0.56 -> 0.15 ms by full-sum-consumed k-chain slope). The STREAM
-    CHANGES (like ``draw_t``'s layout change, documented there), and
-    rbg is not ``jax_threefry_partitionable``-shardable — so this is
-    used only by the single-device fast paths (``particle_tiled.step``,
-    ``gs_ukf.predict``); the shard_map paths draw with partitionable
-    threefry keys outside, and CPU keeps threefry so parity fixtures
-    are backend-stable.
-    """
-    if not FAST_NOISE or jax.default_backend() != "tpu":
-        return key
-    if jnp.issubdtype(key.dtype, jax.dtypes.prng_key):
-        kd = jax.random.key_data(key)
-    else:
-        kd = key                       # raw (2,) uint32 PRNGKey
-    kd = kd.reshape(-1).astype(jnp.uint32)
-    data = jnp.concatenate([kd, kd ^ jnp.uint32(0x9E3779B9)])[:4]
-    return jax.random.wrap_key_data(data, impl="rbg")
-
-
-@struct.dataclass
+@pytree.dataclass
 class GaussianSum:
     """Mixture of ``Nd`` multivariate Gaussians over ``R^Nx`` as a pytree.
 
@@ -152,8 +107,8 @@ class GaussianSum:
         """
         x = jnp.atleast_2d(x)
         es = x[..., None, :] - self.means  # (..., Nd, Nx)
-        # e^T S^-1 e via two einsums (MXU-batched for large leading dims)
-        quad = jnp.einsum("...di,dij,...dj->...d", es, self.inv_cov, es)
+        quad = jnp.einsum("...di,dij,...dj->...d", es, self.inv_cov, es,
+                          precision=_HIGHEST)
         comp = jnp.exp(self.log_const - 0.5 * quad)  # (..., Nd)
         return jnp.sum(self.weights * comp, axis=-1)
 
@@ -164,9 +119,8 @@ class GaussianSum:
         Same mixture as :meth:`pdf` with the quadratic form unrolled
         over the (tiny, static) component and state dims as pure
         elementwise ops — built for bulk lanes-last consumers (the
-        round-5 tiled PF step, filters/particle_tiled.py) where the
-        ``(..., Nx)`` layout of :meth:`pdf` pays ~15x padded memory
-        traffic (cf. :meth:`draw_t`). The contraction order matches
+        structure-of-arrays PF step, filters/particle_tiled.py). The
+        contraction order matches
         ``(e @ inv_cov) . e`` row-major, so values can differ from
         :meth:`pdf`'s einsum by association ulps.
         """
@@ -195,7 +149,8 @@ class GaussianSum:
         """
         x = jnp.atleast_2d(x)
         es = x[..., None, :] - self.means
-        quad = jnp.einsum("...di,dij,...dj->...d", es, self.inv_cov, es)
+        quad = jnp.einsum("...di,dij,...dj->...d", es, self.inv_cov, es,
+                          precision=_HIGHEST)
         logs = self.log_const - 0.5 * quad + jnp.log(self.weights)
         return jax.scipy.special.logsumexp(logs, axis=-1)
 
@@ -228,28 +183,24 @@ class GaussianSum:
         eps = jax.random.normal(kn, (size, self.n_dim), dtype=self.means.dtype)
         # Component selection via one-hot matmuls instead of per-sample
         # (Nd, Nx, Nx) gathers: Nd is tiny (2 in the canonical rig), so
-        # computing every component's affine and selecting keeps the work
-        # on the MXU and off the slow dynamic-gather path.
+        # every component's affine is computed and the right one selected.
         onehot = jax.nn.one_hot(comp, self.n_components, dtype=eps.dtype)
-        scaled = jnp.einsum("nj,dij->ndi", eps, self.chol)
-        # sum-over-components as broadcast-multiply-reduce: the batched
-        # einsum ('nd,ndi->ni', per-sample batch with tiny K) lowers on
-        # TPU as a base-dilated convolution with window=n (catastrophic;
-        # same pathology as the GSUKF einsums, see ops/smallmat.bmm_small)
-        out = onehot @ self.means + jnp.sum(onehot[:, :, None] * scaled, axis=1)
+        scaled = jnp.einsum("nj,dij->ndi", eps, self.chol, precision=_HIGHEST)
+        # sum over components as a broadcast-multiply-reduce rather than a
+        # batched einsum with a tiny contraction (see ops/smallmat.bmm_small)
+        out = jnp.matmul(onehot, self.means, precision=_HIGHEST) + jnp.sum(
+            onehot[:, :, None] * scaled, axis=1)
         return out.reshape(shape + (self.n_dim,))
 
     def draw_t(self, key: jax.Array, size: int) -> jax.Array:
         """Lanes-last draw: ``(Nx, size)`` with the big axis minor.
 
         Same distribution as :meth:`draw` but a DIFFERENT stream mapping
-        (eps is generated transposed), built for bulk consumers like the
-        GSUKF sigma noise where the ``(M, Nx)`` layout's 5-wide trailing
-        dim costs ~15x in padded memory traffic at 2^18x11 draws
-        (scripts/probe_gsf2.py). Every op keeps ``size`` in the TPU lane
-        dimension: the per-component affines are (Nx, Nx) @ (Nx, size)
-        matmuls and the categorical combine is a broadcast-multiply-
-        reduce over the tiny component axis.
+        (eps is generated transposed), built for bulk structure-of-arrays
+        consumers (the PF step, the GSUKF sigma noise). Every op keeps
+        ``size`` as the minor axis: the per-component affines are
+        (Nx, Nx) @ (Nx, size) matmuls and the categorical combine is a
+        broadcast-multiply-reduce over the tiny component axis.
         """
         kc, kn = jax.random.split(key)
         eps = jax.random.normal(kn, (self.n_dim, size),
@@ -257,21 +208,25 @@ class GaussianSum:
         if self.n_components == 2:
             # two-component fast path (the canonical rig): categorical
             # collapses to one uniform compare and the combine to one
-            # select — 2.4 -> ~0.9 ms for the 2^18x11 GSUKF draw
+            # select
             u = jax.random.uniform(kc, (size,), dtype=self.means.dtype)
             p0 = self.weights[0] / (self.weights[0] + self.weights[1])
-            a = self.means[0][:, None] + self.chol[0] @ eps
-            b = self.means[1][:, None] + self.chol[1] @ eps
+            a = self.means[0][:, None] + jnp.matmul(
+                self.chol[0], eps, precision=_HIGHEST)
+            b = self.means[1][:, None] + jnp.matmul(
+                self.chol[1], eps, precision=_HIGHEST)
             return jnp.where((u < p0)[None, :], a, b)
         logits = jnp.log(self.weights)
         comp = jax.random.categorical(kc, logits, shape=(size,))
         scaled = jnp.stack([
-            self.chol[d] @ eps for d in range(self.n_components)
+            jnp.matmul(self.chol[d], eps, precision=_HIGHEST)
+            for d in range(self.n_components)
         ])                                            # (Nd, Nx, size)
         onehot = (comp[None, :] ==
                   jnp.arange(self.n_components)[:, None]
                   ).astype(eps.dtype)                 # (Nd, size)
-        mean_term = self.means.T @ onehot             # (Nx, size)
+        mean_term = jnp.matmul(self.means.T, onehot,
+                               precision=_HIGHEST)   # (Nx, size)
         noise = jnp.sum(onehot[:, None, :] * scaled, axis=0)
         return mean_term + noise
 
@@ -342,7 +297,7 @@ class DeterministicGaussianSum(MultivariateGaussianSum):
     single lazily-extended stream of scalar draws, and ``draw(shape)``
     returns the *first* ``prod(shape) * Nx`` values of the stream
     (cf. /root/reference/gaussian_sum_dist/DeterministicGaussianSum.py:45-65)
-    — so two instances (e.g. one driving a CPU filter and one a TPU
+    — so two instances (e.g. one driving a CPU filter and one a GPU
     filter) see byte-identical noise.
     """
 

@@ -3,7 +3,7 @@
 Functional core over :class:`GSUKFState` replaces the reference CPU/GPU
 pair (/root/reference/filter/gs_ukf.py:9-183, :186-449). All per-Gaussian
 work (sigma points, unscented transform, Kalman gain) is batched over the
-bank axis with einsums — MXU-shaped — instead of Python double loops or
+bank axis as elementwise array math instead of Python double loops or
 guvectorized CUDA kernels. Cholesky failure handling is branchless
 (jitter-on-NaN) rather than exception retry, since exceptions cannot
 cross ``jit`` (cf. the try/except at /root/reference/filter/gs_ukf.py:72-75).
@@ -15,13 +15,10 @@ from typing import Callable
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from gpu_se_tpu import pytree
 
-from gpu_se_tpu.distributions.gaussian_sum import GaussianSum, device_fast_key
-from gpu_se_tpu.filters.resampling import (
-    systematic_resample,
-    systematic_resample_bank,
-)
+from gpu_se_tpu.distributions.gaussian_sum import GaussianSum
+from gpu_se_tpu.filters.resampling import systematic_resample
 from gpu_se_tpu.ops.smallmat import (
     cholesky_small,
     cholesky_small_lanes,
@@ -29,7 +26,7 @@ from gpu_se_tpu.ops.smallmat import (
 )
 
 
-@struct.dataclass
+@pytree.dataclass
 class GSUKFState:
     """means (N, Nx), covariances (N, Nx, Nx), weights (N,), PRNG key."""
 
@@ -104,9 +101,8 @@ def _sigma_points_lanes(means_t, covs_t):
 
     Same construction as :func:`get_sigma_points` (mean, mean ± columns
     of the jittered Cholesky factor), identical op order — only the
-    layout differs. The big bank axis N stays in the TPU lane dimension
-    so nothing is padded 5 -> 128 (the round-3 10.6 ms UT cost at 2^18
-    was almost exactly that padding's bandwidth bill).
+    layout differs: the big bank axis N stays minor (see
+    ops/smallmat's lanes-last section).
     """
     nx = means_t.shape[0]
     l0 = cholesky_small_lanes(covs_t)
@@ -138,8 +134,8 @@ def predict_core(means, covariances, u, dt, noise, f: Callable,
     Noise is added to the sigma points before recombination (deliberate
     covariance inflation, cf. /root/reference/filter/gs_ukf.py:82-103).
 
-    Internally computed in lanes-last layout (bank axis N in the TPU
-    lane dimension); the (N, ...) API is unchanged.
+    Internally computed in lanes-last layout (bank axis N minor); the
+    (N, ...) API is unchanged.
     """
     nx = means.shape[1]
     w_sigma = sigma_weights(nx, means.dtype)  # (2nx+1,)
@@ -174,14 +170,9 @@ def predict(
     """Unscented prediction (cf. /root/reference/filter/gs_ukf.py:82-103)."""
     n, nx = state.means.shape
     key, sub = jax.random.split(state.key)
-    # lanes-last draw: the (N*(2nx+1), nx) layout's padded traffic was
-    # the single largest UT cost at 2^18 (4.7 of 10.5 ms, probe_gsf2);
-    # round 5: rbg bits on TPU, 1.65 -> 0.50 ms (probe_rbg.py — stream
-    # change documented at device_fast_key; this path is single-device,
-    # the shard_map path draws partitionable noise outside predict_core)
+    # lanes-last draw (the bank axis stays minor end to end)
     s_sig = 2 * nx + 1
-    noise_t = state_pdf.draw_t(
-        device_fast_key(sub), n * s_sig).reshape(nx, s_sig, n)
+    noise_t = state_pdf.draw_t(sub, n * s_sig).reshape(nx, s_sig, n)
     noise_t = jnp.transpose(noise_t, (1, 0, 2))         # (s, nx, N)
     means, covs = predict_core(
         state.means, state.covariances, u, dt, noise_t, f,
@@ -196,8 +187,7 @@ def update_core(means, covariances, weights, u, z, g: Callable,
     the shard_map path can reuse it shard-locally.
 
     Lanes-last internally (see :func:`predict_core`): the bank axis N
-    stays in the TPU lane dimension through every intermediate, so the
-    broadcast products are densely packed instead of lane-padded ~25x.
+    stays minor through every intermediate.
     """
     nx = means.shape[1]
     w_sigma = sigma_weights(nx, means.dtype)
@@ -205,8 +195,7 @@ def update_core(means, covariances, weights, u, z, g: Callable,
     covs_t = jnp.transpose(covariances, (1, 2, 0))      # (nx, nx, N)
     # jittered Cholesky factor; centered sigma points are EXACTLY its
     # columns (0, +l_i, -l_i), so the (s, nx, N) sigma stack never needs
-    # to exist here — the HLO for the stacked form streamed ~60 MB
-    # buffers across every fusion boundary
+    # to exist here
     l0 = cholesky_small_lanes(covs_t)
     bad = jnp.isnan(l0).any(axis=(0, 1), keepdims=True)
     eye = jnp.eye(nx, dtype=covs_t.dtype).reshape(nx, nx, 1)
@@ -258,10 +247,7 @@ def update_core(means, covariances, weights, u, z, g: Callable,
     )                                                    # (nx, nx, N)
     # K P K' is symmetric in exact arithmetic but its f32 accumulation
     # is not (kpk[i,j] and kpk[j,i] group the same terms differently);
-    # symmetrize so the bank covariances stay EXACTLY symmetric — the
-    # round-5 symmetric-packed bank resample kernel
-    # (ops/resample_pallas4.pallas_systematic_resample_bank) carries
-    # only the upper triangle and mirrors it back
+    # symmetrize so the bank covariances stay EXACTLY symmetric
     kpk_t = 0.5 * (kpk_t + jnp.swapaxes(kpk_t, 0, 1))
     covs_new_t = covs_t - kpk_t
 
@@ -314,12 +300,10 @@ def update_stabilized(
 
 def resample(state: GSUKFState) -> GSUKFState:
     """Systematic resample of (means, covariances)
-    (cf. /root/reference/filter/gs_ukf.py:151-170). Rides the
-    symmetric-packed tiled bank kernel on TPU (round 5; update_core
-    keeps the covariances exactly symmetric for it)."""
+    (cf. /root/reference/filter/gs_ukf.py:151-170)."""
     key, sub = jax.random.split(state.key)
-    (means, covs), weights = systematic_resample_bank(
-        state.means, state.covariances, state.weights, sub
+    (means, covs), weights = systematic_resample(
+        (state.means, state.covariances), state.weights, sub
     )
     return GSUKFState(means=means, covariances=covs, weights=weights, key=key)
 

@@ -20,13 +20,13 @@ from typing import Callable
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from gpu_se_tpu import pytree
 
 from gpu_se_tpu.distributions.gaussian_sum import GaussianSum
 from gpu_se_tpu.filters.resampling import systematic_resample
 
 
-@struct.dataclass
+@pytree.dataclass
 class PFState:
     """Particle-filter state: particles (N, Nx), weights (N,), PRNG key."""
 
@@ -226,8 +226,8 @@ class ParticleFilter:
     def moments(self):
         """(point_estimate, point_covariance) in ONE fused dispatch,
         cached until the filter state changes — the closed-loop harness
-        reads the moments every plant substep (sim/harness.py), which
-        through the remote relay costs two round trips per call; the
+        reads the moments every plant substep (sim/harness.py), each
+        read otherwise a device dispatch and a transfer to the host; the
         cache makes repeats free and value-identical."""
         if self._moments_cache is None:
             self._moments_cache = self._moments(self.state)

@@ -1,37 +1,32 @@
-"""Tiled-state particle filter: the PF state lives in the v4 kernel's
-(T, 1024) tiled layout ACROSS steps.
+"""Structure-of-arrays particle filter: the fast single-device step.
 
-Round-4 finding (VERDICT r4 weak #4): ~0.8 ms of the 3.72 ms full PF
-step at 2^20 was the (n, 5) <-> (T, 1024) pre/post transposes the
-resample entry ran every step. This module removes them structurally:
+The state is one ``(nx, N)`` float32 array — a row per state dimension,
+the particle axis minor — plus a PRNG key, and it stays in that layout
+across steps:
 
-* the state is a ``(t_data, 1024)`` float32 array — tile row ``c`` is
-  128-lane tile ``c`` of the transposed payload, lane groups 0..nx-1
-  the particle dims, groups 5/6/7 scratch (index/ends/span, rebuilt
-  each step);
-* predict/update run lanes-last on the ``(nx, T, 128)`` dim slices —
-  the bioreactor dynamics/measurement maps are elementwise over the
-  state components (models/bioreactor.py), so the same ``xp``-
-  parameterized functions apply unchanged;
+* predict/update run on the ``(nx, N)`` rows directly: the bioreactor
+  dynamics/measurement maps are elementwise over the state components
+  (models/bioreactor.py), so the same ``xp``-parameterized functions
+  apply unchanged;
 * the mixture noise rides :meth:`GaussianSum.draw_t` and the
-  measurement weighting :meth:`GaussianSum.pdf_t` (both lanes-last);
-* the resample consumes and produces the tiled layout directly
-  (``ops.resample_pallas4.resample_tiled_core``) — the kernel output IS
-  the next step's state.
+  measurement weighting :meth:`GaussianSum.pdf_t` (both rows-major);
+* the resample turns the weights into integer segment ends
+  (``resampling.ends_from_weights``) and gathers the state columns of
+  the ancestors.
 
 Semantics: identical to ``filters/particle.step`` (predict + update +
 systematic resample; cf. /root/reference/filter/particle.py:54-103) up
-to two DOCUMENTED stream/association differences: the noise stream is
-``draw_t``'s (transposed eps generation, like the GSUKF sigma noise)
-and the pdf quadratic form is the unrolled elementwise contraction of
+to two documented stream/association differences: the noise stream is
+``draw_t``'s (transposed eps generation, like the GSUKF sigma noise) and
+the pdf quadratic form is the unrolled elementwise contraction of
 ``pdf_t`` (association ulps vs the einsum). Weights are implicitly
-uniform between steps (the step always resamples, and a uniform
-incoming weight is an exact power-of-two scale of the cumsum — it
-cannot move a segment boundary), so the state carries no weight vector.
+uniform between steps (the step always resamples, and a uniform incoming
+weight is an exact power-of-two scale of the cumsum — it cannot move a
+segment boundary), so the state carries no weight vector.
 
 ``tests/test_particle_tiled.py`` pins the step bitwise against a flat
-(untiled) comparator built from the same lanes-last primitives, with
-the resample routed through the XLA scatter+cummax formulation.
+``(N, nx)`` comparator built from the plain reference
+(``systematic_resample_indices`` + ``sorted_row_gather``).
 """
 from __future__ import annotations
 
@@ -39,141 +34,94 @@ from typing import Callable
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
-from gpu_se_tpu.distributions.gaussian_sum import GaussianSum, device_fast_key
-from gpu_se_tpu.ops.resample_pallas4 import (
-    BIG,
-    ENDS_ROW,
-    IDX_ROW,
-    LANES,
-    resample_tiled_core,
-)
+from gpu_se_tpu import pytree
+from gpu_se_tpu.distributions.gaussian_sum import GaussianSum
+from gpu_se_tpu.filters.resampling import ends_from_weights, indices_from_ends
+from gpu_se_tpu.ops.reduce import blocked_sum
 
-_V4_BLOCK = 4096
+RESAMPLE_KERNELS = ("auto", "xla", "triton")
 
 
-@struct.dataclass
-class TiledPFState:
-    """Tiled particle-filter state.
+@pytree.dataclass
+class SoAPFState:
+    """Particle-filter state: ``x`` (nx, N) float32 rows, PRNG ``key``."""
 
-    Attributes
-    ----------
-    tiled : (t_data, 1024) float32
-        Lane groups 0..nx-1 hold the particle dims; groups nx..7 are
-        scratch (whatever the last kernel run left there).
-    key : PRNG key
-    """
-
-    tiled: jax.Array
+    x: jax.Array
     key: jax.Array
 
     @property
     def n_particles(self) -> int:
-        return self.tiled.shape[0] * LANES
+        return self.x.shape[1]
 
 
-def tiled_applicable(n: int, nx: int, block: int = _V4_BLOCK) -> bool:
-    """Same gate as the v4 kernel: nx <= 5, n a block multiple, f32
-    index rows exact (n <= 2^24)."""
-    return nx <= IDX_ROW and n % block == 0 and n >= block and n <= 2**24
-
-
-def tile(particles: jax.Array, key: jax.Array) -> TiledPFState:
-    """Pack (n, nx) particles into a TiledPFState (one-time transpose)."""
-    n, nx = particles.shape
-    assert tiled_applicable(n, nx), (n, nx)
-    t_data = n // LANES
-    p8 = jnp.zeros((8, n), jnp.float32)
-    p8 = p8.at[:nx].set(particles.astype(jnp.float32).T)
-    tiled = (
-        p8.reshape(8, t_data, LANES)
-        .transpose(1, 0, 2)
-        .reshape(t_data, 8 * LANES)
-    )
-    return TiledPFState(tiled=tiled, key=key)
-
-
-def untile(state: TiledPFState, nx: int) -> jax.Array:
-    """Unpack the tiled state back to (n, nx) particles."""
-    t_data = state.tiled.shape[0]
-    back = (
-        state.tiled.reshape(t_data, 8, LANES)
-        .transpose(1, 0, 2)
-        .reshape(8, t_data * LANES)
-    )
-    return back[:nx].T
-
-
-def init(
-    key: jax.Array, n_particles: int, x0: GaussianSum
-) -> TiledPFState:
-    """Tiled mirror of ``particle.init`` (draw_t stream)."""
+def init(key: jax.Array, n_particles: int, x0: GaussianSum) -> SoAPFState:
+    """Initial particles drawn from ``x0`` (the ``draw_t`` stream)."""
     key, sub = jax.random.split(key)
-    parts_t = x0.draw_t(sub, n_particles)          # (nx, n)
-    return tile(parts_t.T, key)
+    return SoAPFState(x=x0.draw_t(sub, n_particles), key=key)
 
 
-def dims(state: TiledPFState, nx: int) -> jax.Array:
-    """The (nx, T, 128) lanes-last view of the particle dims."""
-    return jnp.stack(
-        [state.tiled[:, d * LANES:(d + 1) * LANES] for d in range(nx)]
-    )
-
-
-def predict_update_local(
-    tiled: jax.Array, u, z, dt, f: Callable, g: Callable,
-    state_pdf: GaussianSum, measurement_pdf: GaussianSum,
-    nx: int, kn: jax.Array,
+def predict_update(
+    x: jax.Array, u, z, dt, f: Callable, g: Callable,
+    state_pdf: GaussianSum, measurement_pdf: GaussianSum, key: jax.Array,
 ):
-    """The lanes-last predict+update on one (t_data, 1024) tiled
-    block: returns ``(xn (nx, T, 128), w (T, 128))``. Shared by the
-    single-device step and the shard-local body of the distributed
-    tiled step (parallel/sharded.make_shard_map_tiled_step)."""
-    t_data = tiled.shape[0]
-    n = t_data * LANES
-    x = jnp.stack(
-        [tiled[:, d * LANES:(d + 1) * LANES] for d in range(nx)]
+    """Predict + update on the ``(nx, N)`` rows: returns the predicted
+    particles ``xn (nx, N)`` and their weights ``w (N,)``.
+
+    Incoming weights are uniform — an exact power-of-two cumsum scale —
+    so the multiply is skipped; see the module docstring."""
+    n = x.shape[1]
+    xn = x + f(x, u, dt) + state_pdf.draw_t(key, n)
+    resid = z.reshape(-1, 1).astype(xn.dtype) - g(xn, u)
+    return xn, measurement_pdf.pdf_t(resid)
+
+
+def gather_columns(x: jax.Array, idx: jax.Array) -> jax.Array:
+    """``x[:, idx]`` for sorted in-bounds ``idx`` (systematic ancestors)."""
+    dn = jax.lax.GatherDimensionNumbers(
+        offset_dims=(0,), collapsed_slice_dims=(1,), start_index_map=(1,))
+    return jax.lax.gather(
+        x, idx[:, None], dn, slice_sizes=(x.shape[0], 1),
+        indices_are_sorted=True,
+        mode=jax.lax.GatherScatterMode.PROMISE_IN_BOUNDS,
     )
-    deltas = f(x, u, dt)
-    # rbg bits on TPU: 0.56 -> 0.15 ms at 2^20 (scripts/probe_rbg.py);
-    # stream change documented at device_fast_key
-    noise = state_pdf.draw_t(
-        device_fast_key(kn), n).reshape(nx, t_data, LANES)
-    xn = x + deltas + noise
-    # incoming weights are uniform — an exact power-of-two cumsum
-    # scale — so the multiply is skipped; see module docstring
-    ys = g(xn, u)
-    resid = z.reshape(-1, 1, 1).astype(xn.dtype) - ys
-    w = measurement_pdf.pdf_t(resid)               # (T, 128)
-    return xn, w
 
 
-def build_body(xn: jax.Array, ends_row: jax.Array, nx: int,
-               with_index: bool = True) -> jax.Array:
-    """Assemble the (t_data, 1024) tiled kernel payload from the
-    lanes-last state ``xn (nx, T, 128)`` and the f32 ends row. The
-    index row (exact f32 iota) is only needed when ancestors must come
-    back out (the single-device path); the distributed pipeline skips
-    it."""
-    t_data = xn.shape[1]
-    zero_row = jnp.zeros((t_data, LANES), jnp.float32)
-    if with_index:
-        idx_row = (
-            jax.lax.broadcasted_iota(jnp.int32, (t_data, LANES), 0)
-            * LANES
-            + jax.lax.broadcasted_iota(jnp.int32, (t_data, LANES), 1)
-        ).astype(jnp.float32)
-    else:
-        idx_row = zero_row
-    groups = [xn[d] for d in range(nx)]
-    groups += [zero_row] * (IDX_ROW - nx)
-    groups += [idx_row, ends_row, zero_row]
-    return jnp.concatenate(groups, axis=1)         # (t_data, 1024)
+def _resample_xla(x, ends):
+    anc = indices_from_ends(ends)
+    return gather_columns(x, anc), anc
+
+
+def resample(x: jax.Array, weights: jax.Array, r: jax.Array, *,
+             kernel: str = "auto", interpret: bool = False):
+    """Systematic resample of the ``(nx, N)`` state.
+
+    ``kernel="xla"`` scatters the ancestors and gathers in XLA;
+    ``kernel="triton"`` fuses the search and gather into one Pallas
+    kernel (ops/resample_triton.py; CUDA GPUs only unless ``interpret``).
+    ``"auto"`` picks the kernel where the program is compiled for a CUDA
+    GPU — faster end to end at 2^20 and 2^24 particles on an H100
+    (PERF.md) — and XLA on every other platform. All return
+    ``(x[:, anc], anc)`` with bitwise-equal ancestors.
+    """
+    from gpu_se_tpu.ops.resample_triton import resample_gather
+
+    def triton(x, ends):
+        return resample_gather(x, ends, interpret=interpret)
+
+    ends = ends_from_weights(weights, r)
+    if kernel == "auto":
+        return jax.lax.platform_dependent(
+            x, ends, cuda=triton, default=_resample_xla)
+    if kernel == "triton":
+        return triton(x, ends)
+    if kernel != "xla":
+        raise ValueError(f"kernel must be one of {RESAMPLE_KERNELS}: {kernel!r}")
+    return _resample_xla(x, ends)
 
 
 def step(
-    state: TiledPFState,
+    state: SoAPFState,
     u: jax.Array,
     z: jax.Array,
     dt,
@@ -182,57 +130,25 @@ def step(
     state_pdf: GaussianSum,
     measurement_pdf: GaussianSum,
     *,
-    nx: int = 5,
-    block: int = _V4_BLOCK,
-    interpret: bool | None = None,
-    compact_tps: int = 64,
-) -> TiledPFState:
-    """Fused predict + update + resample, tiled end to end.
+    kernel: str = "auto",
+) -> SoAPFState:
+    """Fused predict + update + resample.
 
     ``f(x, u, dt) -> dx`` and ``g(x, u) -> y`` take the state as an
-    ``(nx, ...)`` stacked leading-axis array (the ``xp``-parameterized
+    ``(nx, N)`` stacked leading-axis array (the ``xp``-parameterized
     model functions, NOT the per-particle vmapped closures of
-    ``particle.step``).
+    ``particle.step``). ``kernel`` selects the resample path
+    (:func:`resample`).
     """
-    if interpret is None:
-        # Mosaic kernels only exist on TPU; anywhere else (tests, the
-        # CPU entry check) the interpreter runs the same program
-        interpret = jax.default_backend() != "tpu"
-    tiled = state.tiled
-    t_data = tiled.shape[0]
-    n = t_data * LANES
     key, kn, kr = jax.random.split(state.key, 3)
-
-    xn, w = predict_update_local(
-        tiled, u, z, dt, f, g, state_pdf, measurement_pdf, nx, kn)
-
-    # ---- resample: rebuild scratch rows, run the tiled kernel -------
-    from gpu_se_tpu.ops.resample_coarse import ends_from_weights
-
+    xn, w = predict_update(
+        state.x, u, z, dt, f, g, state_pdf, measurement_pdf, kn)
     r = jax.random.uniform(kr, (), dtype=jnp.float32)
-    ends = ends_from_weights(w.reshape(n), r)
-
-    tpb = block // LANES
-    wt = 3 * tpb + 8
-    body = build_body(
-        xn, ends.astype(jnp.float32).reshape(t_data, LANES), nx)
-    # window-overhang pad: BIG in the ends lanes, 0 elsewhere (built
-    # from iota, not a trace-time constant — CLAUDE.md HTTP-413 rule)
-    li = jax.lax.broadcasted_iota(jnp.int32, (wt, 8 * LANES), 1)
-    pad = jnp.where(
-        (li >= ENDS_ROW * LANES) & (li < (ENDS_ROW + 1) * LANES),
-        jnp.float32(BIG), jnp.float32(0.0))
-    full = jnp.concatenate([body, pad], axis=0)
-
-    out_tiled = resample_tiled_core(
-        full, ends, n, block=block, interpret=interpret,
-        compact_tps=compact_tps)
-    return TiledPFState(tiled=out_tiled, key=key)
+    x_new, _ = resample(xn, w, r, kernel=kernel)
+    return SoAPFState(x=x_new, key=key)
 
 
-def point_estimate(state: TiledPFState, nx: int) -> jax.Array:
-    """Uniform-weight particle mean per dim (blocked f32 reduction —
-    the tile rows are the blocks, matching ops/reduce.py's rationale)."""
-    x = dims(state, nx)                            # (nx, T, 128)
-    per_tile = jnp.sum(x, axis=2, dtype=jnp.float32)
-    return jnp.sum(per_tile, axis=1) / jnp.float32(state.n_particles)
+def point_estimate(state: SoAPFState) -> jax.Array:
+    """Uniform-weight particle mean per dimension (blocked f32 sum,
+    ops/reduce.py)."""
+    return blocked_sum(state.x.T) / jnp.float32(state.n_particles)

@@ -5,12 +5,12 @@ The reference implements this three ways: a sequential cumsum walk on CPU
 DLPack plus a hand-written CUDA kernel doing a per-thread bidirectional
 scan ("Nicely's algorithm", /root/reference/filter/particle.py:223-263).
 
-TPU-native design: the scatter+cummax *inverse formulation* (smallest
-``k`` with ``cumsum[k] >= (i + r) / N``, identical output to the
-reference CPU walk) as the portable XLA path, with Pallas merge kernels
-for the hot TPU cases — see ``systematic_resample`` for the routing.
-The multi-chip variant lives in ``gpu_se_tpu.parallel`` (local scan +
-exclusive psum of shard totals).
+Here one XLA formulation serves every backend: the weight cumsum is
+turned into integer segment ``ends`` (particle ``k`` parents output
+slots ``ends[k-1]+1 .. ends[k]``), and the ancestors follow by a scatter
+at each segment start plus a running max — identical output to the
+reference CPU walk. The multi-device variant lives in
+``gpu_se_tpu.parallel`` (segmented scan + exchange of the ends blocks).
 """
 from __future__ import annotations
 
@@ -22,6 +22,43 @@ def systematic_positions(n: int, r: jax.Array) -> jax.Array:
     """Stratified positions u_i = (i + r) / n for a single uniform r."""
     i = jnp.arange(n, dtype=jnp.float32)
     return (i + r) / n
+
+
+def ends_from_weights(weights: jax.Array, r: jax.Array) -> jax.Array:
+    """Integer segment ends of systematic resampling.
+
+    Particle ``k`` parents exactly the output slots ``i`` with
+    ``(i + r)/n <= cs_k`` and ``(i + r)/n > cs_{k-1}`` (``cs`` the
+    normalized cumsum), i.e. slots ``ends[k-1]+1 .. ends[k]`` with
+    ``ends[k] = floor(n cs_k - r)``. Returns the (N,) int32 ends,
+    nondecreasing and clipped to ``[-1, n-1]``.
+    """
+    n = weights.shape[0]
+    cumsum = jnp.cumsum(weights)
+    cumsum = cumsum / cumsum[-1]
+    ends = jnp.floor(n * cumsum - r).astype(jnp.int32)
+    # A parallel (tree) cumsum can dip by an ulp; a dipped ends entry
+    # makes segment boundaries ambiguous, so every formulation (scatter,
+    # binary search, the distributed protocols) agrees bitwise only on
+    # monotone ends. On a sequential cumsum this is the identity.
+    ends = jax.lax.cummax(ends)
+    return jnp.clip(ends, -1, n - 1)
+
+
+def indices_from_ends(ends: jax.Array) -> jax.Array:
+    """Ancestor indices from monotone ``ends``: ``idx[i]`` is the smallest
+    ``k`` with ``ends[k] >= i``. Scatter each parent ``k`` at its first
+    slot ``ends[k-1]+1``, then an inclusive running max fills the rest."""
+    n = ends.shape[0]
+    starts = jnp.concatenate([jnp.zeros(1, jnp.int32), ends[:-1] + 1])
+    valid = starts <= ends
+    ks = jnp.arange(n, dtype=jnp.int32)
+    seed = (
+        jnp.zeros(n, jnp.int32)
+        .at[jnp.where(valid, starts, n)]
+        .max(jnp.where(valid, ks, 0), mode="drop")
+    )
+    return jax.lax.cummax(seed)
 
 
 def systematic_resample_indices(weights: jax.Array, r: jax.Array) -> jax.Array:
@@ -41,45 +78,16 @@ def systematic_resample_indices(weights: jax.Array, r: jax.Array) -> jax.Array:
     -------
     (N,) int32 ancestor indices.
     """
-    n = weights.shape[0]
-    cumsum = jnp.cumsum(weights)
-    cumsum = cumsum / cumsum[-1]
-    # Inverse formulation — O(n) scan instead of a sort-based search
-    # (sort-based searchsorted measured 20 ms at 2^20 on v5e, worse than
-    # this path): particle k parents exactly the output slots i with
-    # (i + r)/n <= cs_k and (i + r)/n > cs_{k-1}, i.e. slots
-    # [ends_{k-1}+1, ends_k] with ends_k = floor(n cs_k - r). Scatter k at
-    # its first slot, then an inclusive running max fills the rest.
-    ends = jnp.floor(n * cumsum - r).astype(jnp.int32)
-    # TPU's tree-based cumsum is locally non-monotone by an ulp; a dipped
-    # ends entry makes segment boundaries ambiguous (the scatter and the
-    # rank/searchsorted formulations then resolve the inversion
-    # differently). Monotonize so every formulation agrees bitwise; on
-    # CPU the sequential cumsum is already monotone and this is identity.
-    ends = jax.lax.cummax(ends)
-    ends = jnp.clip(ends, -1, n - 1)
-    starts = jnp.concatenate([jnp.zeros(1, jnp.int32), ends[:-1] + 1])
-    valid = starts <= ends
-    ks = jnp.arange(n, dtype=jnp.int32)
-    seed = (
-        jnp.zeros(n, jnp.int32)
-        .at[jnp.where(valid, starts, n)]
-        .max(jnp.where(valid, ks, 0), mode="drop")
-    )
-    # native cummax lowers to XLA's blocked cumulative scan (~free at 2^20
-    # on v5e) vs ~1.3 ms for the generic associative_scan lowering
-    return jax.lax.cummax(seed)
+    return indices_from_ends(ends_from_weights(weights, r))
 
 
 def sorted_row_gather(a: jax.Array, idx: jax.Array) -> jax.Array:
     """Gather rows ``a[idx]`` for monotone non-decreasing in-bounds ``idx``.
 
-    Systematic-resampling ancestors are sorted by construction, and
-    telling XLA so changes the TPU lowering from the serialized dynamic
-    gather (~22 ms for (2^20, 5) float32 rows on v5e) to a windowed one
-    (~0.27 ms, measured via scripts/bench_gather.py) — the single largest
-    cost in the reference's whole filter step
-    (/root/reference/filter/particle.py:315-316).
+    Systematic-resampling ancestors are sorted by construction; the gather
+    says so (``indices_are_sorted``) and promises in-bounds indices, so
+    XLA may pick a windowed lowering and skips the bounds clamp
+    (cf. the reference's gather, /root/reference/filter/particle.py:315-316).
     """
     shape = a.shape
     flat = a.reshape(shape[0], -1)
@@ -98,169 +106,6 @@ def sorted_row_gather(a: jax.Array, idx: jax.Array) -> jax.Array:
     return out.reshape((idx.shape[0],) + shape[1:])
 
 
-# ----------------------------------------------------------------------
-# Implementation selection. Round-4 ranking by full-step k-chain slopes
-# at 2^20 (ms/step): v4 tiled jumbo-window (resample-only slope ~2.0,
-# scripts/probe_v10) < v3 pipelined 8.91 < v1 9.48 < XLA 12.6
-# (probe_v9.out). auto on TPU: v4 for (N, <=5) single-leaf payloads at
-# 4096-multiples (with its own exact degenerate-weights compaction
-# path), v3 for other kernel-shaped single leaves, the packed-payload
-# ends kernel for multi-leaf banks (GSUKF, probe_gsf_slope.out). The
-# XLA path remains the reference semantics (and the only path on CPU).
-_IMPL = "auto"  # "auto" | "xla" | "pallas" | "interpret" | "v3" |
-# "v3_interpret" | "v4" | "v4_interpret" | "ends" | "ends_interpret" |
-# "coarse" | "coarse_interpret"
-_KERNEL_BLOCK = 128
-_KERNEL_WINDOW = 256
-# output-slot block of the v4 tiled kernel (resample_pallas4)
-_V4_BLOCK = 4096
-# geometry for the ends-domain pipelined kernel (resample_pallas_block)
-_ENDS_BLOCK = 256
-_ENDS_WINDOW = 256
-
-
-class impl:
-    """Context manager forcing a resample implementation (e.g. the CPU
-    legs of benchmarks inside a TPU-default process use impl('xla'))."""
-
-    def __init__(self, name: str):
-        self.name = name
-
-    def __enter__(self):
-        global _IMPL
-        self._prev = _IMPL
-        _IMPL = self.name
-
-    def __exit__(self, *exc):
-        global _IMPL
-        _IMPL = self._prev
-
-
-def f32_exact_dtype(dtype) -> bool:
-    """True if round-tripping this dtype through float32 is lossless.
-
-    The Pallas kernels carry the (first/packed) payload as float32; any
-    leaf routed through them must survive the cast exactly — float32,
-    bfloat16/float16 (strict subsets of f32), and sub-24-bit ints.
-    int32/int64/float64 values can exceed f32's 24-bit mantissa and must
-    stay on the native-dtype XLA gather path.
-    """
-    d = jnp.dtype(dtype)
-    if d in (jnp.dtype(jnp.float32), jnp.dtype(jnp.bfloat16),
-             jnp.dtype(jnp.float16)):
-        return True
-    return d in (jnp.dtype(jnp.int8), jnp.dtype(jnp.int16),
-                 jnp.dtype(jnp.uint8), jnp.dtype(jnp.uint16))
-
-
-def _kernel_applicable(pytree, n: int) -> bool:
-    leaves = jax.tree_util.tree_leaves(pytree)
-    if not leaves:
-        return False
-    if n < 2 ** 12 or _IMPL == "xla":
-        return False
-    # v4 pads arbitrary n up to a block multiple (round 5: odd sizes on
-    # the XLA fallback measured 10-15x slower at 2^22.5); every other
-    # kernel family still needs the aligned-n gate
-    aligned = n % max(_KERNEL_BLOCK, 256) == 0
-    if _IMPL in ("ends", "ends_interpret"):
-        # the ends kernel packs any pytree of (N, ...) rows into a
-        # (N, <=32) payload — covers the GSUKF (means, covariances) bank
-        from gpu_se_tpu.ops.resample_pallas_block import packable_cols
-
-        return aligned and _pack_dtypes_ok(pytree) and packable_cols(pytree) > 0
-    if _IMPL in ("coarse", "coarse_interpret"):
-        from gpu_se_tpu.ops.resample_coarse import coarse_applicable
-
-        return aligned and _pack_dtypes_ok(pytree) and coarse_applicable(pytree, n)
-    # single-leaf kernels run on the first leaf (must be (N, <=8) and
-    # f32-exact — the kernel carries it as float32); remaining leaves
-    # reuse its ancestor vector through the native-dtype sorted gather
-    first = leaves[0]
-    first_ok = (
-        first.ndim == 2 and first.shape[1] <= 8
-        and f32_exact_dtype(first.dtype)
-    )
-    if _IMPL in ("v4", "v4_interpret"):
-        from gpu_se_tpu.ops.resample_pallas4 import v4_applicable
-
-        return first_ok and v4_applicable(first, n)
-    if _IMPL in ("pallas", "interpret", "v3", "v3_interpret"):
-        return aligned and first_ok
-    if jax.default_backend() != "tpu":
-        return False
-    from gpu_se_tpu.ops.resample_pallas4 import v4_applicable
-
-    if first_ok and v4_applicable(first, n) and not _auto_ends(pytree):
-        return True                      # pad-aware, any n
-    return aligned and (first_ok or _auto_ends(pytree))
-
-
-def _pack_dtypes_ok(pytree) -> bool:
-    """All leaves survive the packed kernels' f32 round trip exactly."""
-    return all(
-        f32_exact_dtype(leaf.dtype)
-        for leaf in jax.tree_util.tree_leaves(pytree)
-    )
-
-
-def _auto_ends(pytree) -> bool:
-    """auto-mode routing on TPU: multi-leaf banks (the GSUKF
-    means+covariances) go through the packed-payload ends kernel — one
-    fused pass beats v1-on-means + a sorted row gather for the (N,5,5)
-    covariances: 13.9 vs 15.5 ms/step at 2^18 by k-chain slope
-    (scripts/probe_gsf_slope.out). Only f32-exact leaf dtypes may ride
-    the packed payload; anything else falls back to the XLA path."""
-    from gpu_se_tpu.ops.resample_pallas_block import packable_cols
-
-    leaves = jax.tree_util.tree_leaves(pytree)
-    return (
-        len(leaves) > 1
-        and _pack_dtypes_ok(pytree)
-        and packable_cols(pytree) > 0
-    )
-
-
-def systematic_resample_bank(
-    means: jax.Array, covs: jax.Array, weights: jax.Array, key: jax.Array
-):
-    """Systematic resample of a Gaussian bank (means, covariances).
-
-    CONTRACT: ``covs`` must be exactly symmetric (update_core
-    symmetrizes K P K'; predict's accumulation is symmetric bitwise) —
-    the TPU fast path packs only the upper triangle through the tiled
-    jumbo-window kernel (ops/resample_pallas4, round 5) and mirrors it
-    back, 24 payload rows instead of the 30-column packed-ends kernel
-    it replaces (~3.7 -> ~2 ms of the 2^18 GSUKF step). Respects the
-    ``impl(...)`` override: anything other than auto/v4 modes falls
-    back to the generic pytree path.
-
-    Returns ``((means, covs), uniform_weights)``.
-    """
-    from gpu_se_tpu.ops.resample_pallas4 import (
-        bank_applicable,
-        pallas_systematic_resample_bank,
-    )
-
-    n = weights.shape[0]
-    use_kernel = (
-        _IMPL in ("bank", "bank_interpret")
-        or (
-            _IMPL in ("auto", "v4")
-            and jax.default_backend() == "tpu"
-        )
-    ) and bank_applicable(means, covs, n)
-    if use_kernel:
-        r = jax.random.uniform(key, ())
-        new_means, new_covs, _ = pallas_systematic_resample_bank(
-            means, covs, weights, r,
-            interpret=(_IMPL == "bank_interpret"),
-        )
-        return (new_means, new_covs), jnp.full(
-            (n,), 1.0 / n, dtype=weights.dtype)
-    return systematic_resample((means, covs), weights, key)
-
-
 def systematic_resample(pytree, weights: jax.Array, key: jax.Array):
     """Resample any pytree of (N, ...) arrays along axis 0.
 
@@ -268,111 +113,10 @@ def systematic_resample(pytree, weights: jax.Array, key: jax.Array):
     particle filter (particles) and the GSUKF (means + covariances),
     mirroring the duplicated kernels at
     /root/reference/filter/particle.py:296-316 and gs_ukf.py:409-436.
-
-    Auto routing on TPU (at kernel-friendly sizes):
-
-    * pytrees whose FIRST leaf is (N, <=8) and f32-exact ride the fused
-      Pallas merge kernel (search + gather in one pass; ancestors match
-      the XLA formulation up to ulp boundary ties); remaining leaves
-      reuse the ancestors via the native-dtype sorted row gather;
-    * multi-leaf banks whose leaves are all f32-exact and pack to <=32
-      columns (the GSUKF means+covariances) ride the packed-payload
-      integer-``ends`` kernel (bitwise-equal to XLA by construction);
-    * everything else — including any pytree with a non-f32-exact leaf
-      (int32/int64/float64) in kernel position — uses the XLA
-      scatter+cummax + sorted-gather path at native dtypes.
-
-    The ``impl(...)`` context manager forces a specific path.
+    Every leaf keeps its dtype.
     """
     n = weights.shape[0]
     r = jax.random.uniform(key, ())
-
-    if _kernel_applicable(pytree, n):
-        if _IMPL in ("coarse", "coarse_interpret"):
-            # coarse-window kernel (ops/resample_coarse.py): bitwise-
-            # equal to the XLA path with a lax.cond fallback on
-            # degenerate weight concentrations. Opt-in: the k-chain
-            # slope measured it at 11.8 ms/step at 2^20 vs 9.3 for the
-            # v1 merge kernel (scripts/probe_v7.out).
-            from gpu_se_tpu.ops.resample_coarse import (
-                coarse_systematic_resample,
-            )
-
-            gathered, anc = coarse_systematic_resample(
-                pytree, weights, r,
-                interpret=(_IMPL == "coarse_interpret"),
-            )
-            return gathered, jnp.full((n,), 1.0 / n, dtype=weights.dtype)
-
-        if _IMPL in ("ends", "ends_interpret") or (
-                _IMPL == "auto" and _auto_ends(pytree)):
-            # integer-ends merge kernel: bitwise-equal to the XLA path
-            # by construction (ops/resample_pallas_block.py); the whole
-            # pytree rides as one packed payload
-            from gpu_se_tpu.ops.resample_pallas_block import (
-                pack_rows,
-                pallas_systematic_resample_ends,
-                unpack_rows,
-            )
-
-            packed, meta = pack_rows(pytree)
-            out, anc = pallas_systematic_resample_ends(
-                packed, weights, r,
-                block_slots=_ENDS_BLOCK, window=_ENDS_WINDOW,
-                interpret=(_IMPL == "ends_interpret"),
-            )
-            gathered = unpack_rows(out, meta)
-            return gathered, jnp.full((n,), 1.0 / n, dtype=weights.dtype)
-
-        leaves, treedef = jax.tree_util.tree_flatten(pytree)
-        from gpu_se_tpu.ops.resample_pallas4 import v4_applicable
-
-        if _IMPL in ("v4", "v4_interpret") or (
-                _IMPL == "auto" and v4_applicable(leaves[0], n)):
-            # round-4 default: the tiled jumbo-window kernel — ~n/4096
-            # sequential pipeline units instead of ~n/128, breaking the
-            # round-3 ~8 ms floor at 2^20 (see resample_pallas4.py)
-            from gpu_se_tpu.ops.resample_pallas4 import (
-                pallas_systematic_resample_tiled,
-            )
-
-            out, anc = pallas_systematic_resample_tiled(
-                leaves[0], weights, r,
-                block=_V4_BLOCK,
-                interpret=(_IMPL == "v4_interpret"),
-            )
-        else:
-            if _IMPL in ("pallas", "interpret"):
-                # v1 synchronous merge kernel (explicit opt-in)
-                from gpu_se_tpu.ops.resample_pallas import (
-                    pallas_systematic_resample as _kernel_fn,
-                )
-            else:
-                # "v3" / auto fallback for shapes v4 can't take: the
-                # DMA-pipelined merge kernel (8.91 ms/step at 2^20,
-                # probe_v9.out)
-                from gpu_se_tpu.ops.resample_pallas3 import (
-                    pallas_systematic_resample_pipelined as _kernel_fn,
-                )
-
-            out, anc = _kernel_fn(
-                leaves[0], weights, r,
-                block_slots=_KERNEL_BLOCK, window=_KERNEL_WINDOW,
-                interpret=_IMPL.endswith("interpret"),
-            )
-        rest = [
-            sorted_row_gather(leaf, jax.lax.optimization_barrier(anc))
-            for leaf in leaves[1:]
-        ]
-        gathered = jax.tree_util.tree_unflatten(
-            treedef, [out.astype(leaves[0].dtype)] + rest
-        )
-        return gathered, jnp.full((n,), 1.0 / n, dtype=weights.dtype)
-
     idx = systematic_resample_indices(weights, r)
-    # Force the index vector to materialize before the gather: without the
-    # barrier XLA fuses the scatter/scan index computation into the gather
-    # and produces a catastrophic loop fusion at 2^20 on v5e.
-    idx = jax.lax.optimization_barrier(idx)
     gathered = jax.tree_util.tree_map(lambda a: sorted_row_gather(a, idx), pytree)
     return gathered, jnp.full((n,), 1.0 / n, dtype=weights.dtype)

@@ -3,7 +3,7 @@
 Mirrors the reference ABC surface (``DEs``/``step``/``outputs``,
 /root/reference/model/NonlinearModel.py:1-29) and adds the pure-function
 hooks (``des``/``out``) that make a model usable inside JAX transforms
-(``jit``/``vmap``/``jacfwd``) — the TPU-native replacement for the
+(``jit``/``vmap``/``jacfwd``) — the JAX replacement for the
 reference's "static method so numba can compile it" pattern
 (/root/reference/model/BioreactorModel.py:170-253).
 """

@@ -13,6 +13,7 @@ like (B + N/B)*eps instead of N*eps. Used by every moment computation
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 
@@ -44,8 +45,9 @@ def blocked_outer_sum(a, b, block: int = 4096):
     while n % blk:
         blk //= 2
     if blk <= 1:
-        return a.T @ b
+        return jnp.matmul(a.T, b, precision=jax.lax.Precision.HIGHEST)
     ar = a.reshape(n // blk, blk, a.shape[1])
     br = b.reshape(n // blk, blk, b.shape[1])
-    partials = jnp.einsum("kbi,kbj->kij", ar, br)
+    partials = jnp.einsum("kbi,kbj->kij", ar, br,
+                          precision=jax.lax.Precision.HIGHEST)
     return jnp.sum(partials, axis=0)

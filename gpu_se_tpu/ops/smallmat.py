@@ -1,12 +1,12 @@
 """Batched small-matrix kernels (n <= ~8) as unrolled elementwise ops.
 
-XLA's batched ``jnp.linalg.cholesky``/``inv`` lower to per-matrix LAPACK-
-style loops that serialize terribly on TPU for huge batches of tiny
-matrices (the GSUKF regime: (N, 5, 5) covariances, (N, 2, 2) innovation
-matrices — cf. /root/reference/filter/gs_ukf.py which used Torch batched
-kernels for the same reason). Unrolling the factorization over the
-static small dimension turns everything into vectorized elementwise math
-on the VPU over the batch axis.
+XLA's batched ``jnp.linalg.cholesky``/``inv`` are built for few large
+matrices, not huge batches of tiny ones (the GSUKF regime: (N, 5, 5)
+covariances, (N, 2, 2) innovation matrices — cf.
+/root/reference/filter/gs_ukf.py which used Torch batched kernels for
+the same reason). Unrolling the factorization over the static small
+dimension turns everything into vectorized elementwise math over the
+batch axis, which XLA fuses.
 """
 from __future__ import annotations
 
@@ -15,15 +15,13 @@ import jax.numpy as jnp
 
 def bmm_small(a, b):
     """Batched tiny matmul (n, i, k) @ (n, k, j) -> (n, i, j) as a
-    broadcast-multiply-reduce. XLA lowers batched dots with tiny
-    contraction dims on TPU as base-dilated CONVOLUTIONS with
-    window=batch — catastrophic (the GSUKF step's einsums measured
-    ~23 ms at 2^16 through that path vs ~1 ms through this form)."""
+    broadcast-multiply-reduce: elementwise float32 math (never a
+    reduced-precision matmul) that fuses with its neighbours."""
     return jnp.sum(a[:, :, :, None] * b[:, None, :, :], axis=2)
 
 
 def weighted_outer_sum(a, w, b):
-    """einsum('nsx,s,nsy->nxy', a, w, b) without the conv lowering."""
+    """einsum('nsx,s,nsy->nxy', a, w, b) as elementwise math."""
     return jnp.sum(
         a[:, :, :, None] * (w[None, :, None, None] * b[:, :, None, :]),
         axis=1,
@@ -31,7 +29,7 @@ def weighted_outer_sum(a, w, b):
 
 
 def weighted_sigma_mean(w, sigmas):
-    """einsum('s,nsx->nx', w, sigmas) without the conv lowering."""
+    """einsum('s,nsx->nx', w, sigmas) as elementwise math."""
     return jnp.sum(w[None, :, None] * sigmas, axis=1)
 
 
@@ -124,13 +122,10 @@ def inv_small(mats: jnp.ndarray) -> jnp.ndarray:
 # ----------------------------------------------------------------------
 # Lanes-last variants: matrix dims LEADING, batch dims TRAILING.
 #
-# TPU tiles the trailing two dims as (8 sublanes, 128 lanes); a
-# (N, 11, 5, 5) intermediate therefore pads 5 -> 128 lanes (~25x memory
-# traffic — the measured 10.6 ms GSUKF unscented transform at 2^18 is
-# almost exactly the padded-bandwidth cost). Keeping the big batch axis
-# LAST packs the lanes densely; these mirrors of the batched ops index
-# the LEADING dims so every elementwise op runs over fully-packed
-# (..., N) lanes.
+# Keeping the big batch axis LAST makes every elementwise op a unit-
+# stride sweep over (..., N) rows; these mirrors of the batched ops index
+# the LEADING dims. Whether this or the batch-leading form is faster on
+# a given device is a measurement, not an assumption.
 # ----------------------------------------------------------------------
 def cholesky_small_lanes(covs: jnp.ndarray) -> jnp.ndarray:
     """Lower Cholesky of (n, n, ...) SPD matrices (matrix dims leading).

@@ -14,8 +14,6 @@ from gpu_se_tpu.parallel.sharded import (
     make_auto_sharded_step,
     make_shard_map_gsukf_step,
     make_shard_map_step,
-    make_shard_map_tiled_step,
-    shard_tiled_pf_state,
     shard_gsukf_state,
     shard_pf_state,
 )
@@ -27,9 +25,7 @@ __all__ = [
     "replicated",
     "make_auto_sharded_step",
     "make_shard_map_step",
-    "make_shard_map_tiled_step",
     "make_shard_map_gsukf_step",
-    "shard_tiled_pf_state",
     "shard_pf_state",
     "shard_gsukf_state",
     "make_auto_sharded_gsukf_step",

@@ -1,11 +1,10 @@
-"""Multi-host initialization for pod-slice runs.
+"""Multi-process initialization for runs that span several hosts.
 
 The reference is single-process/single-GPU (SURVEY.md section 2.4); the
-TPU framework's multi-host story is ``jax.distributed.initialize`` +
-the same 1-D particle mesh spanning every chip in the slice: in-slice
-collectives ride ICI, cross-host hops ride DCN, all inserted by XLA from
-the very same ``shard_map``/GSPMD code that the tests exercise on the
-virtual CPU mesh.
+framework's multi-process story is ``jax.distributed.initialize`` + the
+same 1-D particle mesh spanning every device of every process: XLA
+inserts the collectives from the very same ``shard_map``/GSPMD code that
+the tests exercise on the virtual CPU mesh.
 """
 from __future__ import annotations
 
@@ -22,13 +21,14 @@ def initialize_distributed(
 ):
     """Initialize multi-host JAX if the environment calls for it.
 
-    No-ops on single-process runs (the common case in tests and on the
-    single-chip dev box). On TPU pods the arguments are auto-detected
-    from the TPU environment, so calling with no arguments is correct.
+    No-ops on single-process runs (the common case in tests and on one
+    host). Otherwise pass the coordinator address (``host:port``), the
+    process count and this process's id, or set the coordinator address
+    in the environment for a cluster manager JAX detects.
     """
     env_says_multi = any(
         os.environ.get(k)
-        for k in ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS", "MEGASCALE_COORDINATOR_ADDRESS")
+        for k in ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS")
     )
     if coordinator_address is None and num_processes is None and not env_says_multi:
         # single-process: nothing to do

@@ -16,7 +16,8 @@ def make_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = Non
 
     The reference's one real parallel axis is the particle/sigma-bank
     axis (SURVEY.md section 2.4); a 1-D mesh over it is the whole
-    distribution story — collectives ride ICI within a slice.
+    distribution story. The devices of one GPU host reach each other
+    all to all, so the mesh follows the algorithm, not a topology.
     """
     if devices is None:
         devices = jax.devices()

@@ -3,7 +3,7 @@
 Two primitives over a batch of disturbance scenarios (x0, u_-1, bias):
 
 * :func:`make_scenario_solver` — vmapped *independent* per-scenario QP
-  solves, optionally ``shard_map``-ped over the mesh so each chip solves
+  solves, optionally ``shard_map``-ped over the mesh so each device solves
   its shard of scenarios (Monte-Carlo evaluation, control-period sweeps).
 
 * :func:`make_consensus_scenario_step` — TRUE stochastic MPC: one shared
@@ -11,7 +11,7 @@ Two primitives over a batch of disturbance scenarios (x0, u_-1, bias):
   constraints, solved by consensus ADMM. Each outer iteration every
   shard solves its scenarios' proximal QPs with the vmapped dense ADMM
   (identity-Hessian Woodbury path, see scenario_mpc.consensus_consts),
-  then the consensus du_0 is ONE ``psum`` over ICI. Converges to the
+  then the consensus du_0 is ONE ``psum`` across devices. Converges to the
   stacked scenario optimum (oracle: control/scenario_mpc.ScenarioMPC;
   pinned in tests/test_scenario_mpc.py) — unlike solving at the scenario
   mean, which certainty-equivalence makes optimal only while no
@@ -70,9 +70,10 @@ def _consensus_local(consts, x0s, um1, biases, *, settings, dims, n_outer,
     ``reduce_sum``/``reduce_min`` are ``psum``/``pmin`` inside shard_map,
     identity when unsharded; ``n_total`` the global scenario count.
     """
-    # TPU matmuls default to bf16 passes; the whitened linear terms and the
-    # du_0 extraction must be true float32 or the consensus gap floors at
-    # ~1e-2 (observed on v5e). Trace-time context, same as qp._admm_solve.
+    # A default-precision float32 matmul may run in TF32 on a GPU (about
+    # three decimal digits); the whitened linear terms and the du_0
+    # extraction must be true float32 or the consensus gap stalls far
+    # above its tolerance. Trace-time context, same as qp._admm_solve.
     with jax.default_matmul_precision("float32"):
         return _consensus_local_body(
             consts, x0s, um1, biases, settings=settings, dims=dims,

@@ -14,7 +14,7 @@ Two complementary paths over a 1-D ``Mesh('particles')``:
   a fixed-128-slot segmented cumsum (bitwise width-invariant numerics;
   only the (n/128,) segment totals are ever replicated), ancestor
   computation and particle exchange via ppermute rings that rotate one
-  shard-sized block at a time over ICI. This is the hand-scheduled
+  shard-sized block at a time between devices. This is the hand-scheduled
   analogue of the reference's CUDA pipeline (torch cumsum + Nicely
   kernel + gather, /root/reference/filter/particle.py:296-316), scaled
   to the >=2^24-particle regime the reference exercised
@@ -24,6 +24,7 @@ Two complementary paths over a 1-D ``Mesh('particles')``:
 """
 from __future__ import annotations
 
+import math
 from functools import partial
 from typing import Callable
 
@@ -69,12 +70,7 @@ def make_auto_sharded_step(mesh: Mesh, f: Callable, g: Callable):
         out_shardings=state_shardings,
     )
     def step(state, u, z, dt, state_pdf, measurement_pdf):
-        from gpu_se_tpu.filters import resampling
-
-        # the Pallas resample custom call has no GSPMD partitioning rule;
-        # the auto-sharded path must trace the XLA formulation
-        with resampling.impl("xla"):
-            return pf_core.step(state, u, z, dt, f, g, state_pdf, measurement_pdf)
+        return pf_core.step(state, u, z, dt, f, g, state_pdf, measurement_pdf)
 
     return step
 
@@ -247,91 +243,12 @@ def _ring_gather(pytree, ancestors, axis: str):
     return out
 
 
-def _distributed_systematic_resample_kernel(
-    pytree, weights, r, axis: str, *,
-    block_slots: int = 128, window: int = 256, interpret: bool = False,
-):
-    """Sharded systematic resample whose per-shard search+gather runs the
-    fused Pallas block-merge kernel (ops/resample_pallas_block.py) — the
-    composition of the single-chip kernel story with the multi-chip
-    protocol (VERDICT round 2, task 3). PF-only (single (n_local, nx<=8)
-    leaf); the GSUKF keeps the XLA ring.
-
-    Identical semantics to :func:`_distributed_systematic_resample`: the
-    kernel consumes the same width-invariant integer ``ends`` blocks, so
-    ancestors and rows are bitwise-equal to the XLA ring by construction
-    (integer compares, exact one-hot gather). Any pytree of (n_local,
-    ...) rows packs into one (n_local, <=32) payload (the GSUKF bank =
-    30 columns). Blocks are visited in
-    ascending global order via a psum-masked broadcast (the merge is
-    order-sensitive, unlike the ring's order-free scatter), with two
-    data-dependent skips: a block wholly below this shard's slot range
-    contributes only a count shift, and a shard whose slots are all
-    finalized stops scanning entirely.
-    """
-    from gpu_se_tpu.ops.resample_pallas_block import (
-        block_resample_state,
-        pack_rows,
-        pallas_block_resample_round,
-        unpack_rows,
-    )
-
-    particles, meta = pack_rows(pytree)
-    n_local, nx = particles.shape
-    s_idx = jax.lax.axis_index(axis)
-    n_shards = jax.lax.axis_size(axis)
-    n_global = n_local * n_shards
-    slot0 = s_idx * n_local
-
-    ends, _prev = _segmented_ends(weights, r, axis)
-    counts, acc, fin = block_resample_state(n_local, nx)
-
-    def round_body(q, carry):
-        counts, acc, fin = carry
-        mine = (s_idx == q).astype(jnp.int32)
-        blk_ends = jax.lax.psum(ends * mine, axis)
-        blk_parts = jax.lax.psum(
-            particles * mine.astype(particles.dtype), axis
-        )
-
-        full_below = blk_ends[-1] < slot0
-        all_done = jnp.all(fin > 0.5)
-
-        def skip_below(c, a, f):
-            return c + n_local, a, f
-
-        def scan_block(c, a, f):
-            return pallas_block_resample_round(
-                blk_ends, blk_parts, slot0, c, a, f,
-                block_slots=block_slots, window=window, interpret=interpret,
-            )
-
-        counts, acc, fin = jax.lax.cond(
-            full_below,
-            skip_below,
-            lambda c, a, f: jax.lax.cond(
-                all_done, lambda c, a, f: (c, a, f), scan_block, c, a, f
-            ),
-            counts, acc, fin,
-        )
-        return counts, acc, fin
-
-    counts, acc, fin = jax.lax.fori_loop(
-        0, n_shards, round_body, (counts, acc, fin)
-    )
-    new_tree = unpack_rows(acc[:, :nx], meta)
-    new_weights = jnp.full((n_local,), 1.0 / n_global, dtype=weights.dtype)
-    return new_tree, new_weights
-
-
 # ----------------------------------------------------------------------
-# Round-5 protocol: compact -> block-range exchange -> one local merge.
+# Compact -> block-range exchange -> one local merge.
 #
-# The round-2/3 rings above move EVERY block through EVERY chip (O(W *
-# n_local) ICI bytes and W sequential scatter rounds) — modeled at 19-29%
-# strong-scaling efficiency (results/artifacts/SCALING_MODEL.json, round
-# 4). This protocol exploits two structural facts of systematic
-# resampling:
+# The rings above move EVERY block through EVERY device (O(W * n_local)
+# bytes and W sequential scatter rounds). This protocol exploits two
+# structural facts of systematic resampling:
 #
 # 1. Only SURVIVORS (entries with ``ends[k] > ends[k-1]``) can be
 #    ancestors, and their covered-slot intervals [first_k, last_k] =
@@ -341,15 +258,13 @@ def _distributed_systematic_resample_kernel(
 #    slots) and (b) forms one contiguous run per source shard.
 #
 # So the exchange is a RAGGED ALL-TO-ALL of contiguous survivor runs:
-# O(n_local) received rows per chip, O(boundary) bytes on the wire in
+# O(n_local) received rows per device, O(boundary) bytes on the wire in
 # the non-adversarial regimes (survivors destined to their own shard
 # never transit). After the exchange each shard holds a sorted compacted
 # payload covering exactly its slot range and finishes with ONE local
-# merge (seed scatter + cummax in XLA, or the v4 jumbo-window kernel —
-# strictly increasing ends guarantee its <=128-span compacted-path
-# invariant). Every stage is exact integer arithmetic on the
-# width-invariant ``_segmented_ends`` output, so results are bitwise
-# equal to the ring protocol and to the single-device step.
+# merge (seed scatter + cummax). Every stage is exact integer arithmetic
+# on the width-invariant ``_segmented_ends`` output, so results are
+# bitwise equal to the ring protocol.
 #
 # ``lax.ragged_all_to_all`` has no XLA:CPU lowering, so the virtual-mesh
 # tests run a ppermute-ring EMULATION of the same exchange that produces
@@ -363,9 +278,7 @@ def _compact_survivors(packed, ends, prev):
     """Shard-local survivor compaction.
 
     Returns ``(rows, ends, first)`` with survivors dense at the front in
-    ends order (strictly increasing) and int pads of ``_IBIG`` beyond —
-    the distributed analogue of the v4 compaction kernel's keep rule
-    (ops/resample_pallas4.py)."""
+    ends order (strictly increasing) and int pads of ``_IBIG`` beyond."""
     n_local = ends.shape[0]
     prev_ends = jnp.concatenate([prev[None], ends[:-1]])
     keep = ends > prev_ends
@@ -397,7 +310,7 @@ def _send_windows(surv_ends, surv_first, n_local, n_shards):
 
 def _exchange_ragged(surv_rows, surv_meta, in_off, send_sz, out_off,
                      recv_sz, axis: str):
-    """The production exchange: one ragged all-to-all per buffer (rows
+    """The collective exchange: one ragged all-to-all per buffer (rows
     f32, meta int32). Unwritten receive entries keep the init values, so
     the int pads double as the validity mask."""
     rows = jax.lax.ragged_all_to_all(
@@ -461,401 +374,37 @@ def _merge_received_xla(recv_rows, recv_ends, recv_first, slot0, n_local):
     return sorted_row_gather(recv_rows, jnp.clip(p, 0, n_local - 1))
 
 
-def _compact_survivors_v4(particles, ends, prev, interpret: bool):
-    """Shard-local survivor compaction through the v4 block-vectorized
-    compaction kernel (ops/resample_pallas4.py) — no XLA scatter (the
-    seed-scatter lowering costs ~7.8 ms at 2^20 on v5e; the kernel
-    streams the tiled payload at ~0.9 ms).
-
-    The kernel's keep rule initializes its running max at -1, so the
-    global ends are shifted to local coordinates ``ends - (prev + 1)``
-    first (an order-preserving shift: ``e_k > e_{k-1}`` and ``e_k > -1``
-    iff the global relations hold) and shifted back after.
-
-    Returns ``(surv_rows (n_local, nx) f32, surv_ends (n_local,) f32)``
-    with survivors dense at the front and ``BIG`` pads beyond. Requires
-    ``nx <= 5``, ``n_local % 4096 == 0``, global slots <= 2^24 (f32
-    exactness)."""
-    from gpu_se_tpu.ops import resample_pallas4 as v4
-
-    n_local, nx = particles.shape
-    t_data = n_local // v4.LANES
-    shift = prev + 1
-    ends_f = (ends - shift).astype(jnp.float32)
-
-    p8 = jnp.zeros((8, t_data * v4.LANES), jnp.float32)
-    p8 = p8.at[:nx].set(particles.T)
-    p8 = p8.at[v4.ENDS_ROW].set(ends_f)
-    tiled = (
-        p8.reshape(8, t_data, v4.LANES)
-        .transpose(1, 0, 2)
-        .reshape(t_data, 8 * v4.LANES)
-    )
-    # 64 tiles/grid-step (round 5): ~0.4 ms less than 32 at 2^20 on
-    # v5e; _compact clamps back to 32 when 64 doesn't divide t_data
-    ctiled = v4._compact(tiled, n_local, 0, interpret, tiles_per_step=64)
-    back = (
-        ctiled.reshape(-1, 8, v4.LANES)
-        .transpose(1, 0, 2)
-        .reshape(8, -1)
-    )
-    surv_rows = back[:nx, :n_local].T
-    c_ends = back[v4.ENDS_ROW, :n_local]
-    surv_ends = jnp.where(
-        c_ends < v4.BIG * 0.5, c_ends + shift.astype(jnp.float32), v4.BIG)
-    return surv_rows, surv_ends
+def _pack_rows(pytree):
+    """Flatten a pytree of (n, ...) leaves into one (n, cols) float32
+    payload, plus what :func:`_unpack_rows` needs to invert it."""
+    leaves, treedef = jax.tree_util.tree_flatten(pytree)
+    n = leaves[0].shape[0]
+    mats = [leaf.reshape(n, -1).astype(jnp.float32) for leaf in leaves]
+    meta = (treedef, [leaf.shape for leaf in leaves],
+            [leaf.dtype for leaf in leaves])
+    return jnp.concatenate(mats, axis=1) if len(mats) > 1 else mats[0], meta
 
 
-def _exchange_ring_f32(surv_buf, sizes_mat, off_mat, axis: str):
-    """Ring emulation of the ragged exchange for the single packed f32
-    buffer of the v4-compaction path (ends in the last column)."""
-    n_local = surv_buf.shape[0]
-    s_idx = jax.lax.axis_index(axis)
-    n_shards = jax.lax.axis_size(axis)
-    perm = _ring_perm(n_shards)
-    slot0_f = (s_idx * n_local).astype(jnp.float32)
-
-    my_sizes = sizes_mat[:, s_idx]
-    my_offs = off_mat[:, s_idx]
-    init = jnp.zeros_like(surv_buf)
-    from gpu_se_tpu.ops.resample_pallas4 import BIG
-    init = init.at[:, -1].set(BIG)
-    i = jnp.arange(n_local, dtype=jnp.int32)
-
-    def round_body(rnd, carry):
-        vis, out = carry
-        q = (s_idx - rnd) % n_shards
-        lo = jnp.searchsorted(vis[:, -1], slot0_f,
-                              side="left").astype(jnp.int32)
-        size = jnp.take(my_sizes, q)
-        tgt = jnp.where((i >= lo) & (i < lo + size),
-                        jnp.take(my_offs, q) + i - lo, n_local)
-        out = out.at[tgt].set(vis, mode="drop")
-        vis = jax.lax.ppermute(vis, axis, perm)
-        return vis, out
-
-    _, out = jax.lax.fori_loop(0, n_shards, round_body, (surv_buf, init))
-    return out
-
-
-def _merge_received_v4(recv_rows, recv_ends, slot0, n_local,
-                       interpret: bool):
-    """The same merge through the v4 jumbo-window kernel
-    (ops/resample_pallas4.py): received ends are strictly increasing, so
-    the compacted-path span bound (<=128 per tile) holds unconditionally.
-    Requires nx <= 5 and n_local % 4096 == 0 (the PF regime)."""
-    from gpu_se_tpu.ops import resample_pallas4 as v4
-
-    nx = recv_rows.shape[1]
-    tpb = 4096 // v4.LANES
-    wt = 3 * tpb + 8
-    t_data = n_local // v4.LANES
-    t_alloc = t_data + wt
-    nblocks = n_local // 4096
-
-    if jnp.issubdtype(recv_ends.dtype, jnp.floating):
-        valid = recv_ends < v4.BIG * 0.5
-        shifted = recv_ends - slot0.astype(jnp.float32)
-    else:
-        valid = recv_ends < _IBIG
-        shifted = (recv_ends - slot0).astype(jnp.float32)
-    # local coords; one survivor at most extends past the range — clip
-    # keeps compares for every local slot < n_local unchanged
-    ends_f = jnp.where(valid, jnp.minimum(shifted, float(n_local)), v4.BIG)
-
-    p8 = jnp.zeros((8, t_alloc * v4.LANES), jnp.float32)
-    p8 = p8.at[:nx, :n_local].set(recv_rows.T)
-    p8 = p8.at[v4.ENDS_ROW].set(jnp.concatenate([
-        ends_f, jnp.full((t_alloc * v4.LANES - n_local,), v4.BIG)]))
-    tiled = (
-        p8.reshape(8, t_alloc, v4.LANES)
-        .transpose(1, 0, 2)
-        .reshape(t_alloc, 8 * v4.LANES)
-    )
-    qs = jnp.arange(nblocks + 1, dtype=jnp.int32)[:, None] * 4096
-    p_blk = jnp.sum(
-        (ends_f[::4096][None, :] < qs.astype(jnp.float32)).astype(jnp.int32),
-        axis=1)
-    base = jnp.clip((p_blk[:-1] - 1) * tpb, 0, t_alloc - wt).astype(jnp.int32)
-    out_tiled = v4._run_main_kernel(tiled, base, n_local, tpb, wt, interpret)
-    back = (
-        out_tiled.reshape(t_data, 8, v4.LANES)
-        .transpose(1, 0, 2)
-        .reshape(8, n_local)
-    )
-    return back[:nx].T
-
-
-# ----------------------------------------------------------------------
-# Production PF pipeline: everything stays in the v4 (T, 1024) tiled
-# layout end to end — compaction kernel output IS the exchange operand
-# IS the merge kernel input.
-#
-# Why tiles: XLA's TPU RaggedAllToAll costs ~6 ns per operand ROW
-# independent of row width (measured, scripts/probe_a2a_anchors.out), so
-# exchanging (n_local, 6) survivor rows costs ~6 ms at 2^20 while the
-# same bytes as (n_local/128, 1024) tile rows cost ~0.05 ms. Runs are
-# tile-rounded; the pad lanes this drags along have their ends rewritten
-# at the SENDER to duplicate the previous real end, which keeps the
-# received ends sequence sorted, and a duplicate can never be the first
-# entry >= a slot (its real twin precedes it), so the positional merge
-# is unaffected. Duplicates can inflate a 128-slot window's entry count
-# past the merge kernel's 384-entry reach only when several sources'
-# tail tiles cluster in one window — a cheap span guard falls back to a
-# shard-local XLA merge for that rare case (no collectives in either
-# branch, so the divergent cond is safe under shard_map).
-# ----------------------------------------------------------------------
-def _a2a_tiled_ring(ctiled, in_off, sizes_t, off_t, t_recv, axis: str):
-    """ppermute emulation of the tile-granular ragged exchange (CPU
-    path): rotates the tiled blocks and each source's (W,) in_off row,
-    producing the bitwise-identical receive buffer."""
-    from gpu_se_tpu.ops.resample_pallas4 import BIG, ENDS_ROW, LANES
-
-    s_idx = jax.lax.axis_index(axis)
-    n_shards = jax.lax.axis_size(axis)
-    perm = _ring_perm(n_shards)
-
-    my_sizes = sizes_t[:, s_idx]
-    my_offs = off_t[:, s_idx]
-    init = jnp.zeros((t_recv, 8 * LANES), jnp.float32)
-    init = init.at[:, ENDS_ROW * LANES:(ENDS_ROW + 1) * LANES].set(BIG)
-    rows = jnp.arange(ctiled.shape[0], dtype=jnp.int32)
-
-    def round_body(rnd, carry):
-        vis, vis_inoff, out = carry
-        q = (s_idx - rnd) % n_shards
-        size = jnp.take(my_sizes, q)
-        lo = jnp.take(vis_inoff, s_idx)
-        tgt = jnp.where((rows >= lo) & (rows < lo + size),
-                        jnp.take(my_offs, q) + rows - lo, t_recv)
-        out = out.at[tgt].set(vis, mode="drop")
-        vis = jax.lax.ppermute(vis, axis, perm)
-        vis_inoff = jax.lax.ppermute(vis_inoff, axis, perm)
-        return vis, vis_inoff, out
-
-    _, _, out = jax.lax.fori_loop(
-        0, n_shards, round_body, (ctiled, in_off, init))
-    return out
-
-
-def _merge_received_v4_tiled(recv, slot0, n_local, nx, interpret: bool,
-                             return_tiled: bool = False):
-    """v4 merge directly on the received tiled buffer.
-
-    ``recv`` is (t_recv, 1024) with a globally sorted (duplicates
-    allowed) ends row in GLOBAL coordinates and BIG pads at the tail.
-    Localizes ends in place, brackets window bases from a per-tile
-    sample, guards the duplicate-inflation span bound, and runs the v4
-    main kernel — falling back to a shard-local XLA scatter+cummax merge
-    when a window would exceed the kernel's 384-entry reach."""
-    from gpu_se_tpu.ops import resample_pallas4 as v4
-
-    LANES = v4.LANES
-    tpb = 4096 // LANES
-    wt = 3 * tpb + 8
-    t_recv = recv.shape[0]
-    t_data = n_local // LANES
-    nblocks = n_local // 4096
-
-    sl = slice(v4.ENDS_ROW * LANES, (v4.ENDS_ROW + 1) * LANES)
-    re = recv[:, sl].reshape(-1)
-    valid = re < v4.BIG * 0.5
-    el = jnp.where(
-        valid,
-        jnp.minimum(re - slot0.astype(jnp.float32), float(n_local)),
-        v4.BIG)
-    recv = recv.at[:, sl].set(el.reshape(t_recv, LANES))
-    # pad the window overhang
-    pad = jnp.zeros((wt, 8 * LANES), jnp.float32)
-    pad = pad.at[:, sl].set(v4.BIG)
-    tiled = jnp.concatenate([recv, pad])
-
-    # window bases from the per-4096-block sample of the ends sequence
-    qs = jnp.arange(nblocks + 1, dtype=jnp.int32)[:, None] * 4096
-    sample = el[::4096]
-    p_blk = jnp.sum(
-        (sample[None, :] < qs.astype(jnp.float32)).astype(jnp.int32), axis=1)
-    base = jnp.clip((p_blk[:-1] - 1) * tpb, 0,
-                    tiled.shape[0] - wt).astype(jnp.int32)
-
-    # span guard: entries per 128-slot window (duplicates included)
-    thr = (jnp.arange(t_data + 1, dtype=jnp.int32) * LANES).astype(
-        jnp.float32)
-    cnt = jnp.searchsorted(el, thr, side="left")
-    span_max = jnp.max(cnt[1:] - cnt[:-1])
-
-    def kernel_merge(tiled):
-        out_tiled = v4._run_main_kernel(
-            tiled, base, n_local, tpb, wt, interpret)
-        if return_tiled:
-            # the round-5 tiled-state distributed step chains this
-            # output directly into the next step's input
-            return out_tiled
-        back = (
-            out_tiled.reshape(t_data, 8, LANES)
-            .transpose(1, 0, 2)
-            .reshape(8, n_local)
-        )
-        return back[:nx].T
-
-    def xla_merge(tiled):
-        n_tot = t_recv * LANES
-        elv = el
-        # derived local firsts; duplicates get first > last and never seed
-        firsts = jnp.concatenate([jnp.full((1,), -1.0), elv[:-1] + 1.0])
-        ok = (elv < v4.BIG * 0.5) & (firsts <= elv) & (firsts < n_local)
-        j0 = jnp.clip(firsts, 0.0, float(n_local - 1)).astype(jnp.int32)
-        tgt = jnp.where(ok, j0, n_local)
-        seed = jnp.full((n_local,), jnp.int32(-1)).at[tgt].max(
-            jnp.arange(n_tot, dtype=jnp.int32), mode="drop")
-        # entry 0 covers slot 0 unless a later seed claims it
-        seed = seed.at[0].max(jnp.where(elv[0] < v4.BIG * 0.5, 0, -1))
-        p = jnp.clip(jax.lax.cummax(seed), 0, n_tot - 1)
-        back = (
-            recv.reshape(t_recv, 8, LANES)
-            .transpose(1, 0, 2)
-            .reshape(8, n_tot)
-        )
-        rows = back[:nx].T
-        out = sorted_row_gather(rows, p)
-        if not return_tiled:
-            return out
-        p8 = jnp.zeros((8, n_local), jnp.float32).at[:nx].set(out.T)
-        return (
-            p8.reshape(8, t_data, LANES)
-            .transpose(1, 0, 2)
-            .reshape(t_data, 8 * LANES)
-        )
-
-    return jax.lax.cond(span_max > 2 * LANES, xla_merge, kernel_merge, tiled)
-
-
-def _distributed_systematic_resample_a2a_tiled(
-    particles, weights, r, axis: str, *,
-    exchange: str = "ragged", interpret: bool = False,
-):
-    """The production PF distributed resample: segmented ends -> v4
-    compaction kernel (shifted local coords) -> tile-granular exchange
-    (ragged all-to-all on TPU, ppermute emulation on CPU) -> v4 merge on
-    the received tiles. Bitwise-equal to every other impl. Requires
-    (n_local, nx<=5) f32, n_local % 4096 == 0, n_global <= 2^24."""
-    from gpu_se_tpu.ops import resample_pallas4 as v4
-
-    LANES = v4.LANES
-    n_local, nx = particles.shape
-    s_idx = jax.lax.axis_index(axis)
-    n_shards = jax.lax.axis_size(axis)
-    n_global = n_local * n_shards
-    slot0 = s_idx * n_local
-    t_data = n_local // LANES
-
-    ends, prev = _segmented_ends(weights, r, axis)
-    shift = prev + 1
-    ends_loc = (ends - shift).astype(jnp.float32)
-
-    # tiled payload -> compaction kernel (local coords, keep init -1)
-    p8 = jnp.zeros((8, t_data * LANES), jnp.float32)
-    p8 = p8.at[:nx].set(particles.T)
-    p8 = p8.at[v4.ENDS_ROW].set(ends_loc)
-    tiled = (
-        p8.reshape(8, t_data, LANES)
-        .transpose(1, 0, 2)
-        .reshape(t_data, 8 * LANES)
-    )
-    new_parts = _a2a_compact_exchange_merge(
-        tiled, prev, n_local, nx, axis,
-        exchange=exchange, interpret=interpret)
-    new_weights = jnp.full((n_local,), 1.0 / n_global, dtype=weights.dtype)
-    return new_parts, new_weights
-
-
-def _a2a_compact_exchange_merge(
-    tiled, prev, n_local, nx, axis: str, *,
-    exchange: str = "ragged", interpret: bool = False,
-    return_tiled: bool = False,
-):
-    """The round-5 pipeline from a LOCAL-coords tiled payload on:
-    v4 compaction kernel -> global-coords pad rewrite -> tile-granular
-    exchange -> v4 merge. ``tiled`` is (t_data, 1024) with the shard's
-    ends in LOCAL coordinates (``ends - (prev+1)``) in the ENDS row.
-    With ``return_tiled`` the merge output stays in the tiled layout —
-    the tiled-state distributed step (make_shard_map_tiled_step) chains
-    it directly."""
-    from gpu_se_tpu.ops import resample_pallas4 as v4
-
-    LANES = v4.LANES
-    s_idx = jax.lax.axis_index(axis)
-    n_shards = jax.lax.axis_size(axis)
-    slot0 = s_idx * n_local
-    t_data = n_local // LANES
-    shift = prev + 1
-    # 64 tiles/grid-step (round 5): ~0.4 ms less than 32 at 2^20 on
-    # v5e; _compact clamps back to 32 when 64 doesn't divide t_data
-    ctiled = v4._compact(tiled, n_local, 0, interpret, tiles_per_step=64)
-    t_out = ctiled.shape[0]
-
-    # global-coords ends + duplicate-of-previous pad rewrite, in place
-    sl = slice(v4.ENDS_ROW * LANES, (v4.ENDS_ROW + 1) * LANES)
-    ce = ctiled[:, sl].reshape(-1)
-    real = ce < v4.BIG * 0.5
-    eg = jax.lax.cummax(
-        jnp.where(real, ce + shift.astype(jnp.float32), -v4.BIG))
-    ctiled = ctiled.at[:, sl].set(eg.reshape(t_out, LANES))
-
-    # real-granularity run windows (BIG-padded views exclude dups/pads)
-    er = jnp.where(real, eg, v4.BIG)
-    fr = jnp.where(
-        real,
-        jnp.concatenate([
-            (prev + 1).astype(jnp.float32)[None], er[:-1] + 1.0]),
-        v4.BIG)
-    starts = (jnp.arange(n_shards, dtype=jnp.int32) * n_local).astype(
-        jnp.float32)
-    lo_r = jnp.searchsorted(er, starts, side="left").astype(jnp.int32)
-    hi_r = jnp.searchsorted(fr, starts + float(n_local),
-                            side="left").astype(jnp.int32)
-    tlo = lo_r // LANES
-    thi = jnp.where(hi_r > lo_r, (hi_r + LANES - 1) // LANES, tlo)
-    sizes = thi - tlo                                   # tiles per dest
-
-    sizes_mat = jax.lax.all_gather(sizes, axis)         # (W, W) [src, dst]
-    csum = jnp.cumsum(sizes_mat, axis=0)
-    off_mat = csum - sizes_mat
-    slack = ((2 * n_shards + 15) // 8) * 8
-    t_recv = t_data + slack
-
-    if exchange == "ragged":
-        init = jnp.zeros((t_recv, 8 * LANES), jnp.float32)
-        init = init.at[:, sl].set(v4.BIG)
-        recv = jax.lax.ragged_all_to_all(
-            ctiled, init, tlo, sizes,
-            off_mat[s_idx], sizes_mat[:, s_idx], axis_name=axis)
-    else:
-        recv = _a2a_tiled_ring(
-            ctiled, tlo, sizes_mat, off_mat, t_recv, axis)
-
-    return _merge_received_v4_tiled(
-        recv, slot0, n_local, nx, interpret, return_tiled=return_tiled)
+def _unpack_rows(packed, meta):
+    treedef, shapes, dtypes = meta
+    out, col = [], 0
+    for shape, dtype in zip(shapes, dtypes):
+        width = math.prod(shape[1:])
+        out.append(packed[:, col:col + width].reshape(shape).astype(dtype))
+        col += width
+    return jax.tree_util.tree_unflatten(treedef, out)
 
 
 def _distributed_systematic_resample_a2a(
-    pytree, weights, r, axis: str, *,
-    exchange: str = "ragged", merge: str = "xla", compact: str = "xla",
-    interpret: bool = False,
+    pytree, weights, r, axis: str, *, exchange: str = "ragged",
 ):
     """Compact -> block-range exchange -> one local merge (see the
     section comment above). Bitwise-equal to
     :func:`_distributed_systematic_resample` for any weights.
 
-    ``exchange``: "ragged" (lax.ragged_all_to_all; TPU) or "ring"
-    (ppermute emulation; any backend). ``merge``: "xla" or "v4"
-    (single-leaf nx<=5 payload, n_local % 4096 == 0). ``compact``:
-    "xla" (scatter) or "v4" (the v4 compaction kernel — scatter-free;
-    implies merge="v4" and the same shape gate plus n_global <= 2^24
-    for f32 ends exactness)."""
-    from gpu_se_tpu.ops.resample_pallas_block import pack_rows, unpack_rows
-
-    packed, meta = pack_rows(pytree)
+    ``exchange``: "ragged" (``lax.ragged_all_to_all``) or "ring"
+    (ppermute emulation; any backend, including the CPU mesh)."""
+    packed, meta = _pack_rows(pytree)
     n_local = weights.shape[0]
     s_idx = jax.lax.axis_index(axis)
     n_shards = jax.lax.axis_size(axis)
@@ -863,65 +412,6 @@ def _distributed_systematic_resample_a2a(
     slot0 = s_idx * n_local
 
     ends, prev = _segmented_ends(weights, r, axis)
-
-    if compact == "v4":
-        # scatter-free kernel pipeline: f32 ends ride as the last column
-        # of ONE exchanged buffer; firsts are derived (consecutive
-        # survivors), not exchanged
-        assert merge == "v4", "compact='v4' implies merge='v4'"
-        surv_rows, surv_ends = _compact_survivors_v4(
-            packed, ends, prev, interpret)
-        from gpu_se_tpu.ops.resample_pallas4 import BIG
-
-        # derived firsts are only real where the entry ITSELF is real:
-        # the first pad would otherwise inherit last_end + 1 from the
-        # final survivor and get sent as a phantom row (likewise first_0
-        # on a zero-survivor shard)
-        surv_first = jnp.where(
-            surv_ends < BIG * 0.5,
-            jnp.concatenate([
-                (prev + 1).astype(jnp.float32)[None], surv_ends[:-1] + 1.0]),
-            BIG)
-        in_off, send_sz = _send_windows(
-            surv_ends, surv_first, n_local, n_shards)
-        sizes_mat = jax.lax.all_gather(send_sz, axis)
-        csum = jnp.cumsum(sizes_mat, axis=0)
-        off_mat = csum - sizes_mat
-        surv_buf = jnp.concatenate([surv_rows, surv_ends[:, None]], axis=1)
-        if exchange == "ragged":
-            # the XLA RaggedAllToAll lowering costs ~5 ns/ROW on v5e
-            # (measured ~5.2 ms for a full 2^20-row self-send,
-            # scripts/probe_a2a_anchors.out) — so only CROSS-shard runs
-            # ride the collective; the self run (the bulk in benign
-            # regimes, all of it at W=1) is placed by one local shifted
-            # copy at the same receive offset the collective would use
-            sz_cross = send_sz.at[s_idx].set(0)
-            recv_cross = jax.lax.ragged_all_to_all(
-                surv_buf, jnp.zeros_like(surv_buf).at[:, -1].set(BIG),
-                in_off, sz_cross,
-                off_mat[s_idx], sizes_mat[:, s_idx].at[s_idx].set(0),
-                axis_name=axis)
-            off_self = off_mat[s_idx, s_idx]
-            lo_self = in_off[s_idx]
-            size_self = send_sz[s_idx]
-            cols = surv_buf.shape[1]
-            padded = jnp.concatenate([
-                jnp.zeros_like(surv_buf), surv_buf,
-                jnp.zeros_like(surv_buf)])
-            shifted = jax.lax.dynamic_slice(
-                padded, (n_local + lo_self - off_self, 0), (n_local, cols))
-            pos = jnp.arange(n_local, dtype=jnp.int32)
-            own = (pos >= off_self) & (pos < off_self + size_self)
-            recv = jnp.where(own[:, None], shifted, recv_cross)
-        else:
-            recv = _exchange_ring_f32(surv_buf, sizes_mat, off_mat, axis)
-        new_packed = _merge_received_v4(
-            recv[:, :-1], recv[:, -1], slot0, n_local, interpret)
-        new_tree = unpack_rows(new_packed, meta)
-        new_weights = jnp.full(
-            (n_local,), 1.0 / n_global, dtype=weights.dtype)
-        return new_tree, new_weights
-
     surv_rows, surv_ends, surv_first = _compact_survivors(packed, ends, prev)
     in_off, send_sz = _send_windows(surv_ends, surv_first, n_local, n_shards)
 
@@ -939,13 +429,9 @@ def _distributed_systematic_resample_a2a(
         recv_rows, recv_meta = _exchange_ring(
             surv_rows, surv_meta, sizes_mat, off_mat, axis)
 
-    if merge == "v4":
-        new_packed = _merge_received_v4(
-            recv_rows, recv_meta[:, 0], slot0, n_local, interpret)
-    else:
-        new_packed = _merge_received_xla(
-            recv_rows, recv_meta[:, 0], recv_meta[:, 1], slot0, n_local)
-    new_tree = unpack_rows(new_packed, meta)
+    new_packed = _merge_received_xla(
+        recv_rows, recv_meta[:, 0], recv_meta[:, 1], slot0, n_local)
+    new_tree = _unpack_rows(new_packed, meta)
     new_weights = jnp.full((n_local,), 1.0 / n_global, dtype=weights.dtype)
     return new_tree, new_weights
 
@@ -980,6 +466,17 @@ def _distributed_systematic_resample(pytree, weights, r, axis: str):
     return new_tree, new_weights
 
 
+def _exchange_for(resample_impl: str, a2a_names: dict):
+    """None for the ring protocol ("xla"), else the a2a exchange kind."""
+    if resample_impl == "xla":
+        return None
+    if resample_impl not in a2a_names:
+        raise ValueError(
+            f"resample_impl must be 'xla' or one of {sorted(a2a_names)}: "
+            f"{resample_impl!r}")
+    return a2a_names[resample_impl]
+
+
 def make_shard_map_step(mesh: Mesh, f: Callable, g: Callable,
                         axis: str = PARTICLE_AXIS,
                         resample_impl: str = "xla"):
@@ -989,25 +486,13 @@ def make_shard_map_step(mesh: Mesh, f: Callable, g: Callable,
     keys, so results are bitwise identical to the single-device step
     whenever XLA keeps the elementwise math in the same order.
 
-    ``resample_impl``: "xla" (scatter+ring, any pytree), "kernel" (fused
-    Pallas block-merge per shard, real TPU), "kernel_interpret" (same
-    kernel via the Pallas interpreter — the CPU-mesh test path), or the
-    round-5 compact/exchange/merge protocol: "a2a" (ragged all-to-all +
-    v4 merge kernel, real TPU production), "a2a_xla" (ragged + XLA
-    merge), "a2a_ring" (ppermute-emulated exchange + XLA merge, any
-    backend), "a2a_ring_v4" (emulated exchange + v4 merge via the
-    interpreter — the CPU-mesh full-path test). All are bitwise-equal
-    (integer ``ends`` merge domain).
+    ``resample_impl``: "xla" (scatter+ring, any pytree) or the
+    compact/exchange/merge protocol: "a2a_xla" (``lax.ragged_all_to_all``
+    exchange) or "a2a_ring" (ppermute-emulated exchange, any backend).
+    All are bitwise-equal (integer ``ends`` merge domain).
     """
-    _A2A = {  # survivor-granularity variants: (exchange, merge, compact, interp)
-        "a2a_xla": ("ragged", "xla", "xla", False),
-        "a2a_ring": ("ring", "xla", "xla", False),
-        "a2a_ring_v4": ("ring", "v4", "v4", True),
-    }
-    _A2A_TILED = {  # tile-granularity production pipeline: (exchange, interp)
-        "a2a": ("ragged", False),
-        "a2a_tiled_ring": ("ring", True),
-    }
+    exchange = _exchange_for(resample_impl, {"a2a_xla": "ragged",
+                                             "a2a_ring": "ring"})
 
     def step(state: PFState, u, z, dt, state_pdf: GaussianSum,
              measurement_pdf: GaussianSum) -> PFState:
@@ -1028,28 +513,13 @@ def make_shard_map_step(mesh: Mesh, f: Callable, g: Callable,
         def sharded(particles, weights, u, z, dt, noise, r):
             particles = _local_predict(particles, u, dt, noise, f)
             weights = _local_update(particles, weights, u, z, g, measurement_pdf)
-            if resample_impl == "xla":
+            if exchange is None:
                 particles, weights = _distributed_systematic_resample(
                     particles, weights, r, axis
                 )
-            elif resample_impl in _A2A_TILED:
-                exch, interp = _A2A_TILED[resample_impl]
-                particles, weights = (
-                    _distributed_systematic_resample_a2a_tiled(
-                        particles, weights, r, axis,
-                        exchange=exch, interpret=interp,
-                    ))
-            elif resample_impl in _A2A:
-                exch, merge, comp, interp = _A2A[resample_impl]
-                particles, weights = _distributed_systematic_resample_a2a(
-                    particles, weights, r, axis,
-                    exchange=exch, merge=merge, compact=comp,
-                    interpret=interp,
-                )
             else:
-                particles, weights = _distributed_systematic_resample_kernel(
-                    particles, weights, r, axis,
-                    interpret=(resample_impl == "kernel_interpret"),
+                particles, weights = _distributed_systematic_resample_a2a(
+                    particles, weights, r, axis, exchange=exchange
                 )
             return particles, weights
 
@@ -1106,10 +576,7 @@ def make_auto_sharded_gsukf_step(mesh: Mesh, f: Callable, g: Callable):
         out_shardings=state_sh,
     )
     def step(state, u, z, dt, state_pdf, measurement_pdf):
-        from gpu_se_tpu.filters import resampling
-
-        with resampling.impl("xla"):
-            return gs_ukf.step(state, u, z, dt, f, g, state_pdf, measurement_pdf)
+        return gs_ukf.step(state, u, z, dt, f, g, state_pdf, measurement_pdf)
 
     return step
 
@@ -1123,9 +590,15 @@ def make_shard_map_gsukf_step(mesh: Mesh, f: Callable, g: Callable,
     reference's GPU resample of both arrays
     (/root/reference/filter/gs_ukf.py:409-436). Sigma-point noise is drawn
     outside the shard_map with partitionable keys, so the result matches
-    the single-device step under the identical key schedule."""
+    the single-device step under the identical key schedule.
+
+    ``resample_impl``: "xla" (ring protocol), "a2a" (ragged all-to-all
+    exchange) or "a2a_ring" (its ppermute emulation)."""
     from gpu_se_tpu.filters import gs_ukf
     from gpu_se_tpu.filters.gs_ukf import GSUKFState
+
+    exchange = _exchange_for(resample_impl, {"a2a": "ragged",
+                                             "a2a_ring": "ring"})
 
     def step(state: GSUKFState, u, z, dt, state_pdf: GaussianSum,
              measurement_pdf: GaussianSum) -> GSUKFState:
@@ -1149,22 +622,13 @@ def make_shard_map_gsukf_step(mesh: Mesh, f: Callable, g: Callable,
             means, covs, weights = gs_ukf.update_core(
                 means, covs, weights, u, z, g, measurement_pdf
             )
-            if resample_impl == "xla":
+            if exchange is None:
                 (means, covs), weights = _distributed_systematic_resample(
                     (means, covs), weights, r, axis
                 )
-            elif resample_impl in ("a2a", "a2a_ring"):
-                # multi-leaf bank packs to 30 cols > the v4 kernel's 5,
-                # so the a2a protocol merges in XLA here
-                (means, covs), weights = _distributed_systematic_resample_a2a(
-                    (means, covs), weights, r, axis,
-                    exchange=("ragged" if resample_impl == "a2a" else "ring"),
-                    merge="xla",
-                )
             else:
-                (means, covs), weights = _distributed_systematic_resample_kernel(
-                    (means, covs), weights, r, axis,
-                    interpret=(resample_impl == "kernel_interpret"),
+                (means, covs), weights = _distributed_systematic_resample_a2a(
+                    (means, covs), weights, r, axis, exchange=exchange
                 )
             return means, covs, weights
 
@@ -1184,79 +648,3 @@ def make_shard_map_gsukf_step(mesh: Mesh, f: Callable, g: Callable,
         in_shardings=(state_shardings, r_sh, r_sh, None, None, None),
         out_shardings=state_shardings,
     )
-
-
-def shard_tiled_pf_state(state, mesh: Mesh):
-    """Place a TiledPFState on the mesh: tile rows sharded over the
-    particle axis (each shard holds n_local/128 contiguous tile rows —
-    exactly the per-shard tiled payload), key replicated."""
-    from gpu_se_tpu.filters.particle_tiled import TiledPFState
-
-    return TiledPFState(
-        tiled=jax.device_put(
-            state.tiled, NamedSharding(mesh, P(PARTICLE_AXIS, None))),
-        key=jax.device_put(state.key, NamedSharding(mesh, P())),
-    )
-
-
-def make_shard_map_tiled_step(mesh: Mesh, f: Callable, g: Callable,
-                              axis: str = PARTICLE_AXIS,
-                              exchange: str = "ragged",
-                              interpret: bool | None = None,
-                              nx: int = 5):
-    """Round-5 TILED-STATE distributed PF step: the per-shard state
-    stays in the v4 (t_data, 1024) layout ACROSS steps, like the
-    single-device ``particle_tiled.step`` — lanes-last shard-local
-    predict/update (rbg noise on TPU via a per-shard folded key),
-    width-invariant segmented ends, then the compact -> tile-granular
-    exchange -> v4 merge pipeline with the merge output chained
-    directly as the next state (no per-step AoS <-> tiled transposes,
-    the tax the round-4 per-shard program still paid).
-
-    ``f(x, u, dt)`` / ``g(x, u)`` are the xp-parameterized lanes-last
-    model functions (as in particle_tiled.step). ``exchange``: "ragged"
-    (lax.ragged_all_to_all, TPU) or "ring" (ppermute emulation, any
-    backend). NOISE STREAM: per-shard ``fold_in(key, shard)`` draw_t —
-    deterministic, but width-DEPENDENT (unlike make_shard_map_step's
-    partitionable global draws); the resample stage remains bitwise
-    width-invariant given identical weights (tests/test_tiled_sharded).
-    """
-    from gpu_se_tpu.filters import particle_tiled as pft
-
-    def step(state, u, z, dt, state_pdf: GaussianSum,
-             measurement_pdf: GaussianSum):
-        itp = (interpret if interpret is not None
-               else jax.default_backend() != "tpu")
-        key, kn, kr = jax.random.split(state.key, 3)
-        r = jax.random.uniform(kr, ())
-
-        @partial(
-            shard_map,
-            mesh=mesh,
-            in_specs=(P(axis, None), P(), P(), P(), P(), P()),
-            out_specs=P(axis, None),
-            check_vma=False,
-        )
-        def sharded(tiled, u, z, dt, r, kn):
-            from gpu_se_tpu.ops.resample_pallas4 import LANES
-
-            s_idx = jax.lax.axis_index(axis)
-            n_local = tiled.shape[0] * LANES
-            kn_local = jax.random.fold_in(kn, s_idx)
-            xn, w = pft.predict_update_local(
-                tiled, u, z, dt, f, g, state_pdf, measurement_pdf,
-                nx, kn_local)
-            ends, prev = _segmented_ends(w.reshape(n_local), r, axis)
-            ends_loc = (ends - (prev + 1)).astype(jnp.float32)
-            body = pft.build_body(
-                xn, ends_loc.reshape(-1, LANES), nx, with_index=False)
-            return _a2a_compact_exchange_merge(
-                body, prev, n_local, nx, axis,
-                exchange=exchange, interpret=itp, return_tiled=True)
-
-        new_tiled = sharded(state.tiled, u, z, dt, r, kn)
-        from gpu_se_tpu.filters.particle_tiled import TiledPFState
-
-        return TiledPFState(tiled=new_tiled, key=key)
-
-    return step

@@ -1,4 +1,4 @@
-# first line: 61
+# first line: 24
 @PickleJar.pickle(
     "parity",
     # pin the committed cache: GPU_SE_PICKLEJAR_ROOT (set by the

@@ -49,7 +49,7 @@ def plot(t_run=5.0):
     import matplotlib.pyplot as plt
 
     accel_missing = False
-    for gpu, label in ((True, "TPU"), (False, "CPU")):
+    for gpu, label in ((True, "accelerator"), (False, "CPU")):
         rows = energy_per_run(t_run, gpu)
         ns = [r[0] for r in rows]
         host = [r[1] for r in rows]

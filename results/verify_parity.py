@@ -1,7 +1,7 @@
 """Full-scale control-sequence parity verification (BASELINE north star).
 
 Runs the no-noise closed loop at the canonical configuration
-(dt_control=1, P=300, M=200) twice — TPU-native condensed MPC vs the
+(dt_control=1, P=300, M=200) twice — the condensed float32 MPC vs the
 reference sparse-layout QP solved by an independent float64 ADMM — and
 reports the max-abs input/output deviations. The scaled-down version of
 this check runs in the test suite (tests/test_closed_loop_parity.py).
@@ -14,10 +14,8 @@ import numpy as np
 
 from results._common import _REPO  # noqa: F401  (sys.path setup)
 from gpu_se_tpu import sim
-
-sys.path.insert(0, _REPO)
-from tests.test_closed_loop_parity import run_no_noise_loop  # noqa: E402
-from tests.test_mpc import ReferenceLayoutMPC  # noqa: E402
+from gpu_se_tpu.control.reference import ReferenceLayoutMPC
+from gpu_se_tpu.sim import run_no_noise_loop
 
 
 def main(end_time=50):

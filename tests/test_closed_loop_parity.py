@@ -1,4 +1,4 @@
-"""Control-sequence parity: the TPU-native MPC vs the reference QP layout
+"""Control-sequence parity: the condensed MPC vs the reference QP layout
 over the full no-noise closed loop.
 
 This is the BASELINE.json north-star check ("bit-tolerant control-sequence
@@ -16,45 +16,8 @@ import numpy as np
 import pytest
 
 from gpu_se_tpu import sim
-from gpu_se_tpu.models import Bioreactor
-
-from tests.test_mpc import ReferenceLayoutMPC
-
-
-def run_no_noise_loop(K, lin_model, end_time=50, dt_control=1):
-    """The no_noise closed loop, verbatim structure
-    (cf. /root/reference/results/bioreactor_closedloop/no_noise.py:8-51)."""
-    ts = np.linspace(0, end_time, end_time * 10)
-    dt = ts[1]
-    bioreactor = Bioreactor(
-        X0=Bioreactor.find_SS(
-            np.array([0.06, 0.2]), np.array([260 / 180, 640 / 24.6, 1000 / 116, 0, 0])
-        ),
-        high_N=False,
-    )
-    us = [np.array([0.06, 0.2])]
-    xs = [bioreactor.X.copy()]
-    ys = [bioreactor.outputs(us[-1])]
-    t_next = 0.0
-    for t in ts[1:]:
-        if t > t_next:
-            u_temp = us[-1].copy()
-            u = K.step(
-                lin_model.xn2d(xs[-1]),
-                lin_model.un2d(us[-1]),
-                lin_model.yn2d(ys[-1]),
-            )
-            u_temp[lin_model.inputs] = lin_model.ud2n(u)
-            us.append(u_temp.copy())
-            t_next += dt_control
-        else:
-            us.append(us[-1])
-        bioreactor.step(dt, us[-1])
-        ys.append(bioreactor.outputs(us[-1]))
-        xs.append(bioreactor.X.copy())
-    return ts, np.array(us), np.array(xs), np.array(ys)
-
-
+from gpu_se_tpu.control.reference import ReferenceLayoutMPC
+from gpu_se_tpu.sim import run_no_noise_loop
 from gpu_se_tpu.utils import PickleJar
 
 

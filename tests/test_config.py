@@ -1,5 +1,8 @@
 """Config-layer tests."""
+import os
+
 import numpy as np
+import pytest
 
 from gpu_se_tpu import config
 
@@ -29,3 +32,39 @@ def test_build_rig():
     assert K.P == 150
     assert est.N_particles == 64
     assert np.isfinite(bioreactor.X).all()
+
+
+@pytest.fixture
+def restore_cache_config():
+    import jax
+
+    names = ("jax_compilation_cache_dir",
+             "jax_persistent_cache_min_entry_size_bytes",
+             "jax_persistent_cache_min_compile_time_secs")
+    saved = {n: getattr(jax.config, n) for n in names}
+    yield
+    for n, v in saved.items():
+        jax.config.update(n, v)
+
+
+def test_compile_cache_defaults_to_repo_dir(monkeypatch, restore_cache_config):
+    import jax
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    path = config.enable_compile_cache()
+    assert path == os.path.join(config.REPO_ROOT, ".jax_cache")
+    assert jax.config.jax_compilation_cache_dir == path
+    assert os.path.isdir(path)
+
+
+def test_compile_cache_follows_environment(monkeypatch, tmp_path,
+                                           restore_cache_config):
+    """With JAX_COMPILATION_CACHE_DIR set, JAX reads it itself and the
+    helper sets no directory of its own."""
+    import jax
+
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    before = jax.config.jax_compilation_cache_dir
+    path = config.enable_compile_cache()
+    assert path == before == jax.config.jax_compilation_cache_dir
+    assert jax.config.jax_persistent_cache_min_compile_time_secs == 0.5

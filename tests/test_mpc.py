@@ -13,189 +13,11 @@ contract.
 """
 import numpy as np
 import pytest
-import scipy.sparse as sp
 
 from gpu_se_tpu import models
 from gpu_se_tpu.control import MPC, DenseQP, QPSettings, SOLVED
+from gpu_se_tpu.control.reference import ReferenceLayoutMPC
 from gpu_se_tpu.models import LinearModel, TankModel, create_linear_model
-
-
-# ----------------------------------------------------------------------
-def numpy_admm_qp(H, A, q, l, u, max_iter=60000, tol=1e-9, warm=None):
-    """Independent float64 ADMM QP solver (OSQP algorithm, incl. adaptive
-    rho) used as ground truth for the formulation-equivalence tests.
-
-    Returns ``(x, warm_state)`` so closed-loop callers can warm start.
-    """
-    n, m = H.shape[0], A.shape[0]
-    sigma, alpha = 1e-6, 1.6
-    eq = np.isclose(l, u)
-    rho = np.where(eq, 1e3 * 0.1, 0.1)
-
-    def factor(rho):
-        K = H + sigma * np.eye(n) + A.T @ (rho[:, None] * A)
-        return np.linalg.inv(K)
-
-    K_inv = factor(rho)
-    if warm is not None:
-        x, z, y = (v.copy() for v in warm)
-    else:
-        x, z, y = np.zeros(n), np.zeros(m), np.zeros(m)
-    l_c = np.where(np.isfinite(l), l, -1e30)
-    u_c = np.where(np.isfinite(u), u, 1e30)
-    for it in range(1, max_iter + 1):
-        rhs = sigma * x - q + A.T @ (rho * z - y)
-        xt = K_inv @ rhs
-        x_new = alpha * xt + (1 - alpha) * x
-        zt = A @ xt
-        z_pre = alpha * zt + (1 - alpha) * z + y / rho
-        z_new = np.clip(z_pre, l_c, u_c)
-        y = rho * (z_pre - z_new)
-        x, z = x_new, z_new
-        if it % 50 == 0:
-            prim = np.max(np.abs(A @ x - z))
-            dual = np.max(np.abs(H @ x + q + A.T @ y))
-            den_p = max(1e-10, np.abs(A @ x).max(), np.abs(z).max())
-            den_d = max(1e-10, np.abs(H @ x).max(), np.abs(q).max(),
-                        np.abs(A.T @ y).max())
-            if prim < tol * max(1, den_p) and dual < tol * max(1, den_d):
-                break
-            factor_r = np.sqrt((prim / den_p) / max(dual / den_d, 1e-12))
-            if factor_r > 5 or factor_r < 0.2:
-                rho = np.clip(rho * factor_r, 1e-6, 1e6)
-                K_inv = factor(rho)
-    return x, (x, z, y)
-
-
-# ----------------------------------------------------------------------
-# Reference QP layout, transcribed from /root/reference/controller.py
-# ----------------------------------------------------------------------
-class ReferenceLayoutMPC:
-    def __init__(self, P, M, Q, R, lin, ysp, y_bounds=None, u_bounds=None,
-                 u_step_bounds=None):
-        self.P, self.M, self.Q, self.R = P, M, Q, R
-        self.model = lin
-        Nx, Ni = lin.B.shape
-        No = lin.C.shape[0]
-
-        def unpack(bounds, dim):
-            if bounds is None:
-                return np.full(dim, -np.inf), np.full(dim, np.inf)
-            lo, hi = [np.asarray(b, float) for b in zip(*bounds)]
-            return lo, hi
-
-        y_min, y_max = unpack(y_bounds, No)
-        u_min, u_max = unpack(u_bounds, Ni)
-        du_min, du_max = unpack(u_step_bounds, Ni)
-
-        H = sp.block_diag([
-            sp.csc_matrix(((P + 1) * Nx, (P + 1) * Nx)),
-            sp.kron(sp.eye(P), Q),
-            sp.csc_matrix((Ni, Ni)),
-            sp.kron(sp.eye(M + 1), R),
-        ], format="csc")
-        q = np.hstack([
-            np.zeros((P + 1) * Nx),
-            np.kron(np.ones(P), -Q @ ysp),
-            np.zeros((M + 2) * Ni),
-        ])
-
-        A_um1 = sp.hstack([
-            sp.csc_matrix((Ni, (P + 1) * Nx + P * No)),
-            sp.eye(Ni),
-            sp.csc_matrix((Ni, (M + 1) * Ni)),
-        ])
-
-        A_state_x = sp.hstack([
-            sp.vstack([
-                -sp.eye(Nx),
-                lin.A - sp.eye(Nx),
-                sp.csc_matrix(((P - 1) * Nx, Nx)),
-            ]),
-            sp.vstack([
-                sp.csc_matrix((Nx, P * Nx)),
-                sp.kron(sp.eye(P, k=-1), lin.A) - sp.eye(P * Nx),
-            ]),
-        ])
-        A_state_u = sp.vstack([
-            sp.csc_matrix((Nx, (M + 2) * Ni)),
-            sp.kron(
-                sp.hstack([
-                    sp.csc_matrix(([1], ([0], [0])), shape=(M, 1)),
-                    sp.eye(M),
-                    sp.csc_matrix((M, 1)),
-                ]),
-                lin.B,
-            ),
-            sp.csc_matrix(((P - M) * Nx, (M + 2) * Ni)),
-        ])
-        A_state = sp.hstack([A_state_x, sp.csc_matrix(((P + 1) * Nx, P * No)), A_state_u])
-        b_state = np.hstack([np.zeros(Nx), np.zeros(P * Nx)])  # -x0 filled per step
-
-        A_out_x = sp.kron(
-            sp.hstack([sp.csc_matrix(([1], ([0], [0])), shape=(P, 1)), sp.eye(P)]),
-            lin.C,
-        )
-        A_out_y = -sp.eye(P * No) + sp.eye(P * No, k=-No)
-        A_out_u = sp.vstack([
-            sp.kron(
-                sp.hstack([
-                    sp.csc_matrix(([1, 1], ([0, 0], [0, 1])), shape=(M, 2)),
-                    sp.eye(M),
-                ]),
-                lin.D,
-            ),
-            sp.csc_matrix(((P - M) * No, (M + 2) * Ni)),
-        ])
-        A_output = sp.hstack([A_out_x, A_out_y, A_out_u])
-        b_output = np.zeros(P * No)
-
-        A_out_ineq = sp.hstack([
-            sp.csc_matrix((P * No, (P + 1) * Nx)),
-            sp.eye(P * No),
-            sp.csc_matrix((P * No, (M + 2) * Ni)),
-        ])
-        A_steps = sp.hstack([
-            sp.csc_matrix(((M + 1) * Ni, (P + 1) * Nx + P * No + Ni)),
-            sp.eye((M + 1) * Ni),
-        ])
-        # reduced input constraint (the overwrite at controller.py:211-220)
-        A_in = sp.hstack([
-            sp.csc_matrix((Ni, (P + 1) * Nx + P * No)),
-            sp.kron(np.ones((1, 2)), sp.eye(Ni)),
-            sp.csc_matrix((Ni, M * Ni)),
-        ])
-
-        self.A = sp.vstack([A_um1, A_state, A_output, A_out_ineq, A_steps, A_in]).toarray()
-        self.l = np.hstack([
-            np.zeros(Ni), b_state, b_output,
-            np.kron(np.ones(P), y_min), np.kron(np.ones(M + 1), du_min), u_min,
-        ])
-        self.u = np.hstack([
-            np.zeros(Ni), b_state, b_output,
-            np.kron(np.ones(P), y_max), np.kron(np.ones(M + 1), du_max), u_max,
-        ])
-        self.H = H.toarray()
-        self.q = q
-        self.Nx, self.Ni, self.No = Nx, Ni, No
-        self.y_predicted = None
-        self._warm = None
-
-    def step(self, x0, um1, y0):
-        Nx, Ni, No, P = self.Nx, self.Ni, self.No, self.P
-        l, u = self.l.copy(), self.u.copy()
-        l[:Ni] = um1
-        u[:Ni] = um1
-        l[Ni:Ni + Nx] = -x0
-        u[Ni:Ni + Nx] = -x0
-        bias = (y0 - self.y_predicted) if self.y_predicted is not None else np.zeros_like(y0)
-        l[Ni + (P + 1) * Nx:Ni + (P + 1) * Nx + P * No] = np.tile(-bias, P)
-        u[Ni + (P + 1) * Nx:Ni + (P + 1) * Nx + P * No] = np.tile(-bias, P)
-        x, self._warm = numpy_admm_qp(self.H, self.A, self.q, l, u, warm=self._warm)
-        m = (P + 1) * Nx + P * No + Ni
-        ctrl = x[m:m + Ni] + um1
-        self.y_predicted = x[(P + 1) * Nx:(P + 1) * Nx + No] - bias
-        return ctrl
 
 
 def random_stable_lin_model(seed, nx=2, ni=2, no=2, dt=1.0, with_d=True):
@@ -363,3 +185,49 @@ def test_canonical_bioreactor_rig_mpc():
     assert np.isfinite(u).all()
     # input bound (u >= 0 in natural units) respected
     assert np.all(u + lin.u_bar >= -1e-5)
+
+
+def test_extract_matches_float64():
+    """The device-side extraction of the control move runs in full
+    float32 (pinned: a default-precision GPU matmul may use TF32): it
+    matches the float64 product to float32 rounding."""
+    import jax.numpy as jnp
+
+    from gpu_se_tpu.control.mpc import _extract
+
+    rng = np.random.default_rng(0)
+    ctrl_map = rng.standard_normal((2, 402))
+    theta0_w = rng.standard_normal((2, 402))
+    v = rng.standard_normal(402)
+    consts = {"ctrl_map": jnp.asarray(ctrl_map, jnp.float32),
+              "theta0_w": jnp.asarray(theta0_w, jnp.float32)}
+    ctrl, y1 = _extract(consts, jnp.asarray(v, jnp.float32))
+    f32 = lambda a: np.asarray(a, np.float32).astype(np.float64)  # noqa: E731
+    for got, mat in ((ctrl, ctrl_map), (y1, theta0_w)):
+        want = f32(mat) @ f32(v)
+        scale = np.abs(f32(mat)) @ np.abs(f32(v))
+        assert np.all(np.abs(np.asarray(got, np.float64) - want)
+                      <= 402 * 2.0 ** -24 * scale)
+
+
+def test_device_step_matches_host_step():
+    """make_device_step (all float32 on device, precision pinned) gives
+    the host shell's float64-prepared control move to solver accuracy."""
+    import jax.numpy as jnp
+
+    from gpu_se_tpu.control import mpc as mpc_mod
+
+    lin = random_stable_lin_model(3)
+    K = MPC(6, 3, np.eye(2), 0.1 * np.eye(2), lin, np.array([0.5, -0.2]),
+            u_bounds=[np.array([-1.0, 1.0]), np.array([-1.0, 1.0])],
+            qp_settings=QPSettings(eps_abs=1e-6, eps_rel=1e-6, max_iter=20000))
+    x0, um1, y0 = np.array([0.3, -0.1]), np.zeros(2), np.array([0.1, 0.2])
+    u_host = K.step(x0, um1, y0)
+    consts, step_fn = mpc_mod.make_device_step(K)
+    n_d, m = (K.M + 1) * K.Ni, int(K.qp.m)
+    ctrl, _, sol = step_fn(consts, jnp.asarray(x0, jnp.float32),
+                           jnp.asarray(um1, jnp.float32),
+                           jnp.zeros(2, jnp.float32),
+                           jnp.zeros(n_d, jnp.float32), jnp.zeros(m, jnp.float32))
+    assert int(sol.status) == SOLVED
+    np.testing.assert_allclose(np.asarray(ctrl), u_host, atol=1e-4)

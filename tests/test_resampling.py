@@ -9,10 +9,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+import pytest
+
 from gpu_se_tpu.filters.resampling import (
+    ends_from_weights,
     systematic_resample,
     systematic_resample_indices,
 )
+from resample_cases import NS, REGIMES, regime_weights
 
 
 def reference_walk(weights, r):
@@ -93,299 +97,41 @@ def test_resample_under_jit():
     np.testing.assert_array_equal(a, b)
 
 
-def test_pallas_kernel_path_matches_xla():
-    """The fused Pallas merge kernel (the TPU default at kernel-friendly
-    sizes) produces the same resampled set as the XLA scatter+cummax path
-    (interpret mode on CPU; ulp boundary ties absent at this seed)."""
-    import jax
-
-    from gpu_se_tpu.filters import resampling
-
-    n = 4096
-    key = jax.random.PRNGKey(5)
-    k1, k2, k3 = jax.random.split(key, 3)
-    parts = jax.random.normal(k1, (n, 5), jnp.float32)
-    w = jnp.exp(-2.0 * jax.random.normal(k2, (n,)) ** 2) + 1e-9
-
-    with resampling.impl("xla"):
-        ref, wref = jax.jit(resampling.systematic_resample)(parts, w, k3)
-    with resampling.impl("interpret"):
-        got, wgot = jax.jit(resampling.systematic_resample)(parts, w, k3)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
-    np.testing.assert_allclose(np.asarray(wgot), np.asarray(wref))
-
-
-def test_kernel_applicability_guards():
-    from gpu_se_tpu.filters import resampling
-
-    two_leaf = (jnp.zeros((4096, 5)), jnp.zeros((4096, 5, 5)))
-    assert not resampling._kernel_applicable(two_leaf, 4096)
-    wide = jnp.zeros((4096, 25))
-    assert not resampling._kernel_applicable(wide, 4096)
-    odd = jnp.zeros((4100, 5))
-    assert not resampling._kernel_applicable(odd, 4100)
-    small = jnp.zeros((512, 5))
-    assert not resampling._kernel_applicable(small, 512)
-    ok = jnp.zeros((4096, 5))
-    with resampling.impl("pallas"):
-        assert resampling._kernel_applicable(ok, 4096)
-    with resampling.impl("xla"):
-        assert not resampling._kernel_applicable(ok, 4096)
-
-
-def test_pallas_kernel_multi_leaf_matches_xla():
-    """GSUKF-style (means, covariances) pytree: the kernel resamples the
-    first leaf and its ancestor vector gathers the rest."""
-    import jax
-
-    from gpu_se_tpu.filters import resampling
-
-    n = 4096
-    key = jax.random.PRNGKey(6)
-    k1, k2, k3, k4 = jax.random.split(key, 4)
-    means = jax.random.normal(k1, (n, 5), jnp.float32)
-    covs = jax.random.normal(k4, (n, 5, 5), jnp.float32)
-    w = jnp.exp(-2.0 * jax.random.normal(k2, (n,)) ** 2) + 1e-9
-
-    with resampling.impl("xla"):
-        (rm, rc), _ = jax.jit(resampling.systematic_resample)((means, covs), w, k3)
-    with resampling.impl("interpret"):
-        (gm, gc), _ = jax.jit(resampling.systematic_resample)((means, covs), w, k3)
-    np.testing.assert_array_equal(np.asarray(gm), np.asarray(rm))
-    np.testing.assert_array_equal(np.asarray(gc), np.asarray(rc))
-
-
-def test_ends_impl_path_matches_xla():
-    """impl('ends_interpret') routes systematic_resample through the
-    integer-ends pipelined kernel; bitwise-equal to the XLA path."""
-    from gpu_se_tpu.filters import resampling
-
-    n = 2 ** 12
-    key = jax.random.PRNGKey(11)
-    parts = jax.random.normal(key, (n, 5), jnp.float32)
-    w = jnp.exp(5.0 * jnp.tanh(parts[:, 0]) ** 2)
-    kr = jax.random.PRNGKey(12)
-
-    with resampling.impl("xla"):
-        ref, rw = resampling.systematic_resample(parts, w, kr)
-    with resampling.impl("ends_interpret"):
-        out, ow = resampling.systematic_resample(parts, w, kr)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-    np.testing.assert_array_equal(np.asarray(ow), np.asarray(rw))
-
-
-def test_ends_impl_high_precision_gather_exact():
-    """HIGH (bf16x3) one-hot gather reconstructs f32 rows exactly —
-    the cheaper-precision claim the TPU default may rely on."""
-    from gpu_se_tpu.ops.resample_pallas_block import (
-        pallas_systematic_resample_ends,
-    )
-    from gpu_se_tpu.filters.resampling import (
-        sorted_row_gather, systematic_resample_indices,
-    )
-
-    n = 2 ** 12
-    # adversarial mantissas: denormals, huge/tiny magnitudes, ulp studs
-    rng = np.random.default_rng(3)
-    parts = (rng.standard_normal((n, 5)) *
-             10.0 ** rng.integers(-30, 30, (n, 5))).astype(np.float32)
-    parts = jnp.asarray(parts)
-    w = jnp.exp(4.0 * jnp.tanh(parts[:, 0] / (1 + jnp.abs(parts[:, 0]))) ** 2)
-    r = jnp.float32(0.37)
-    idx = systematic_resample_indices(w, r)
-    ref = sorted_row_gather(parts, idx)
-    out, anc = pallas_systematic_resample_ends(
-        parts, w, r, 256, 256, interpret=True,
-        gather_precision=jax.lax.Precision.HIGH,
-    )
-    np.testing.assert_array_equal(np.asarray(anc), np.asarray(idx))
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-
-def test_coarse_impl_path_matches_xla():
-    """impl('coarse_interpret') routes systematic_resample through the
-    coarse-window kernel (ops/resample_coarse.py); bitwise-equal to the
-    XLA path, including a multi-leaf pytree."""
-    from gpu_se_tpu.filters import resampling
-
-    n = 2 ** 13
-    key = jax.random.PRNGKey(21)
-    parts = jax.random.normal(key, (n, 5), jnp.float32)
-    extra = jax.random.normal(jax.random.PRNGKey(22), (n, 1), jnp.float32)
-    w = jnp.exp(5.0 * jnp.tanh(parts[:, 0]) ** 2)
-    kr = jax.random.PRNGKey(23)
-
-    with resampling.impl("xla"):
-        (rp, re), rw = resampling.systematic_resample((parts, extra), w, kr)
-    with resampling.impl("coarse_interpret"):
-        (op, oe), ow = resampling.systematic_resample((parts, extra), w, kr)
-    np.testing.assert_array_equal(np.asarray(op), np.asarray(rp))
-    np.testing.assert_array_equal(np.asarray(oe), np.asarray(re))
-    np.testing.assert_array_equal(np.asarray(ow), np.asarray(rw))
-
-
-def test_coarse_overflow_fallback_bitwise():
-    """Degenerate weight concentration overflows the coarse window; the
-    lax.cond fallback must stay bitwise-equal to the XLA path."""
-    from gpu_se_tpu.ops.resample_coarse import coarse_systematic_resample
-    from gpu_se_tpu.filters.resampling import (
-        sorted_row_gather, systematic_resample_indices,
-    )
-
-    n = 2 ** 13
-    parts = jax.random.normal(jax.random.PRNGKey(31), (n, 5), jnp.float32)
-    w = jnp.ones((n,), jnp.float32).at[37].set(1e7)
-    r = jnp.float32(0.42)
-    idx = systematic_resample_indices(w, r)
-    ref = sorted_row_gather(parts, idx)
-    out, anc = coarse_systematic_resample(parts, w, r, interpret=True)
-    np.testing.assert_array_equal(np.asarray(anc), np.asarray(idx))
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-
-
-def test_coarse_chunk_boundaries_match_searchsorted():
-    """The two-level dense-compare boundary computation equals
-    searchsorted on random and degenerate ends."""
-    from gpu_se_tpu.ops.resample_coarse import (
-        chunk_boundaries, ends_from_weights,
-    )
-
-    n, b = 2 ** 13, 128
-    for seed, weights in [
-        (0, jnp.exp(4 * jax.random.normal(jax.random.PRNGKey(0), (n,)))),
-        (1, jnp.ones((n,)).at[5].set(1e8)),
-        (2, jnp.ones((n,))),
-    ]:
-        e = ends_from_weights(weights.astype(jnp.float32), jnp.float32(0.3))
-        o = chunk_boundaries(e, n, b)
-        qs = jnp.arange(0, n + b, b, dtype=jnp.int32)
-        o_ref = jnp.searchsorted(e, qs, side="left").astype(jnp.int32)
-        np.testing.assert_array_equal(np.asarray(o), np.asarray(o_ref),
-                                      err_msg=f"seed {seed}")
-
-
-def test_auto_mode_routing_rules(monkeypatch):
-    """auto mode on TPU: multi-leaf packable banks route to the ends
-    kernel; single (N,<=8) leaves to v1; wide single leaves to XLA."""
-    from gpu_se_tpu.filters import resampling
-
+def test_mixed_dtype_routing_stays_exact():
+    """Every leaf keeps its dtype through the resample: int32 values
+    beyond f32's 24-bit mantissa survive exactly."""
     n = 2 ** 13
     means = jnp.zeros((n, 5), jnp.float32)
-    covs = jnp.zeros((n, 5, 5), jnp.float32)
-    wide = jnp.zeros((n, 40), jnp.float32)
-
-    assert resampling._auto_ends((means, covs))
-    assert not resampling._auto_ends(means)          # single leaf -> v1
-    assert not resampling._auto_ends((means, wide))  # 45 cols > 32
-
-    monkeypatch.setattr(resampling.jax, "default_backend", lambda: "tpu")
-    assert resampling._kernel_applicable((means, covs), n)
-    assert resampling._kernel_applicable(means, n)
-    assert not resampling._kernel_applicable(wide, n)
-
-    monkeypatch.setattr(resampling.jax, "default_backend", lambda: "cpu")
-    assert not resampling._kernel_applicable((means, covs), n)
-
-
-def test_v3_impl_path_matches_xla():
-    """impl('v3_interpret') — the TPU auto default's kernel — routes
-    through the pipelined merge kernel; bitwise-equal to the XLA path."""
-    from gpu_se_tpu.filters import resampling
-
-    n = 2 ** 12
-    parts = jax.random.normal(jax.random.PRNGKey(41), (n, 5), jnp.float32)
-    w = jnp.exp(5.0 * jnp.tanh(parts[:, 0]) ** 2)
-    kr = jax.random.PRNGKey(42)
-
-    with resampling.impl("xla"):
-        ref, rw = resampling.systematic_resample(parts, w, kr)
-    with resampling.impl("v3_interpret"):
-        out, ow = resampling.systematic_resample(parts, w, kr)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-    np.testing.assert_array_equal(np.asarray(ow), np.asarray(rw))
-
-
-def test_mixed_dtype_routing_stays_exact(monkeypatch):
-    """ADVICE r3 (medium): auto routing must never push non-f32-exact
-    leaves (int32 beyond 2^24, float64) through the f32-packing kernels.
-    Such pytrees fall back to the XLA path and keep native dtypes."""
-    from gpu_se_tpu.filters import resampling
-
-    n = 2 ** 13
-    monkeypatch.setattr(resampling.jax, "default_backend", lambda: "tpu")
-
-    means = jnp.zeros((n, 5), jnp.float32)
-    covs = jnp.zeros((n, 5, 5), jnp.float32)
-    big_ints = jnp.full((n, 1), 2 ** 24 + 1, jnp.int32)
-
-    # f32-exact multi-leaf bank still routes to the packed kernel ...
-    assert resampling._auto_ends((means, covs))
-    # ... but an int32 leaf disqualifies the pack (the f32-exact first
-    # leaf still admits the v1 kernel: non-first leaves ride the
-    # native-dtype sorted gather, which is safe)
-    assert not resampling._auto_ends((means, big_ints))
-    # an int32 FIRST leaf disqualifies the single-leaf kernels entirely
-    assert not resampling._kernel_applicable(big_ints, n)
-    assert not resampling._kernel_applicable((big_ints, covs), n)
-    # int32 in non-first position with a kernel-shaped first leaf is fine
-    # (non-first leaves ride the native-dtype sorted gather)
-    assert resampling._kernel_applicable((means, big_ints, covs), n)
-
-    # end-to-end (real backend again): values beyond f32's mantissa
-    # survive exactly through the public entry point
-    monkeypatch.undo()
     w = jnp.exp(jnp.linspace(-3.0, 2.0, n, dtype=jnp.float32))
     key = jax.random.PRNGKey(7)
     vals = (jnp.arange(n, dtype=jnp.int32) + 2 ** 24 + 1)[:, None]
     (out_m, out_v), _ = systematic_resample((means, vals), w, key)
-    assert out_v.dtype == jnp.int32
+    assert out_v.dtype == jnp.int32 and out_m.dtype == jnp.float32
     idx = systematic_resample_indices(w, jax.random.uniform(key, ()))
     np.testing.assert_array_equal(
         np.asarray(out_v[:, 0]), np.asarray(vals[np.asarray(idx), 0])
     )
 
 
-def test_f32_exact_dtype_table():
-    from gpu_se_tpu.filters.resampling import f32_exact_dtype
-
-    for ok in (jnp.float32, jnp.bfloat16, jnp.float16, jnp.int8, jnp.int16):
-        assert f32_exact_dtype(ok), ok
-    for bad in (jnp.int32, jnp.int64, jnp.float64, jnp.uint32):
-        assert not f32_exact_dtype(bad), bad
-
-
-def test_v4_impl_path_matches_xla():
-    """impl('v4_interpret') — the round-4 tiled jumbo-window kernel —
-    bitwise-equal to the XLA path, incl. the tie-degenerate fallback."""
-    from gpu_se_tpu.filters import resampling
-
-    n = 2 ** 12
-    rng = np.random.default_rng(11)
-    for case in ("random", "dead_runs"):
-        w_np = np.exp(rng.standard_normal(n)).astype(np.float32)
-        if case == "dead_runs":
-            w_np[: n // 2] = 1e-12
-        parts = jnp.asarray(rng.standard_normal((n, 5)), jnp.float32)
-        w = jnp.asarray(w_np)
-        kr = jax.random.PRNGKey(42)
-        with resampling.impl("xla"):
-            ref, rw = resampling.systematic_resample(parts, w, kr)
-        with resampling.impl("v4_interpret"):
-            out, ow = resampling.systematic_resample(parts, w, kr)
-        np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
-        np.testing.assert_array_equal(np.asarray(ow), np.asarray(rw))
-
-
-def test_v4_applicability_gate():
-    from gpu_se_tpu.ops.resample_pallas4 import v4_applicable
-
-    ok = jnp.zeros((2 ** 13, 5), jnp.float32)
-    assert v4_applicable(ok, 2 ** 13)
-    assert not v4_applicable(jnp.zeros((2 ** 13, 7), jnp.float32), 2 ** 13)
-    # round 5: non-block-multiples are PADDED onto the kernel
-    assert v4_applicable(ok[: 2 ** 13 - 128], 2 ** 13 - 128)
-    assert not v4_applicable(jnp.zeros((128, 5), jnp.float32), 128)
-    # f32 index exactness bounds the PADDED slot count: n just under
-    # 2^24 pads TO 2^24 (ok); one past it pads beyond (rejected)
-    assert v4_applicable(jnp.zeros((2, 5), jnp.float32), 2 ** 24 - 100)
-    assert not v4_applicable(jnp.zeros((2, 5), jnp.float32), 2 ** 24 + 1)
+@pytest.mark.parametrize("r", (0.0, 0.37, 0.999))
+@pytest.mark.parametrize("regime", REGIMES)
+@pytest.mark.parametrize("n", NS)
+def test_systematic_invariants(n, regime, r):
+    """Counts, monotone ancestors, and the ancestors as a binary search of
+    the integer segment ends, for every weight regime."""
+    w = regime_weights(regime, n, seed=n)
+    r32 = jnp.float32(r)
+    ends = np.asarray(ends_from_weights(jnp.asarray(w), r32))
+    idx = np.asarray(systematic_resample_indices(jnp.asarray(w), r32))
+    assert idx.dtype == np.int32 and idx.shape == (n,)
+    assert np.all(np.diff(idx) >= 0) and 0 <= idx[0] and idx[-1] < n
+    assert np.all(np.diff(ends) >= 0) and ends[-1] == n - 1
+    np.testing.assert_array_equal(
+        idx, np.searchsorted(ends, np.arange(n), side="left"))
+    # particle k is drawn floor or ceil of n * (its normalized weight)
+    # times, up to the float32 rounding of the cumsum (a few ulps of 1,
+    # i.e. a few times n * 2^-24 slots)
+    counts = np.bincount(idx, minlength=n)
+    expected = n * (w.astype(np.float64) / w.astype(np.float64).sum())
+    assert np.all(np.abs(counts - expected) <= 1.0 + n * 2.0 ** -20)
+    assert counts.sum() == n

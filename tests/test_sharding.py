@@ -308,9 +308,8 @@ def test_gsukf_auto_sharded_matches_single_device(rig):
 
 
 def test_2e23_full_step_width_invariance(rig):
-    """2^23 total particles — beyond the repo's single-chip compile limit
-    (CLAUDE.md: remote AOT hangs at >=2^23), the regime SURVEY section 7
-    assigns to the multi-chip path — run SHARDED on the CPU mesh: the
+    """2^23 total particles — the regime SURVEY section 7 assigns to
+    the multi-device path — run SHARDED on the CPU mesh: the
     full shard_map step is bitwise width-invariant (fixed-segment cumsum
     + ring exchange; n_local is a multiple of 128 for both widths)."""
     n = 2 ** 23
@@ -412,7 +411,6 @@ def _raw_distributed_resample(nd, n, parts_np, w_np, r, impl):
     from gpu_se_tpu.parallel.sharded import (
         _distributed_systematic_resample,
         _distributed_systematic_resample_a2a,
-        _distributed_systematic_resample_a2a_tiled,
     )
     from gpu_se_tpu.parallel.mesh import PARTICLE_AXIS
 
@@ -434,17 +432,9 @@ def _raw_distributed_resample(nd, n, parts_np, w_np, r, impl):
             if impl == "xla":
                 return _distributed_systematic_resample(
                     parts, w, r, PARTICLE_AXIS)
-            if impl == "a2a_tiled_ring":
-                return _distributed_systematic_resample_a2a_tiled(
-                    parts, w, r, PARTICLE_AXIS,
-                    exchange="ring", interpret=True)
-            exch, merge, comp, interp = {
-                "a2a_ring": ("ring", "xla", "xla", False),
-                "a2a_ring_v4": ("ring", "v4", "v4", True),
-            }[impl]
+            assert impl == "a2a_ring", impl
             return _distributed_systematic_resample_a2a(
-                parts, w, r, PARTICLE_AXIS,
-                exchange=exch, merge=merge, compact=comp, interpret=interp)
+                parts, w, r, PARTICLE_AXIS, exchange="ring")
         return body(parts, w, r)
 
     parts = jax.device_put(jnp.asarray(parts_np), p_sh)
@@ -472,10 +462,9 @@ def _weight_families(n, rng):
 
 
 def test_a2a_resample_matches_ring_all_weight_families():
-    """Round-5 compact/exchange/merge protocol == ring protocol,
-    BITWISE, for every weight family (uniform, point masses, zeroed
-    blocks, heavy tails) at every mesh width — both the XLA merge and
-    the v4-kernel merge (interpreted).
+    """Compact/exchange/merge protocol == ring protocol, BITWISE, for
+    every weight family (uniform, point masses, zeroed blocks, heavy
+    tails) at every mesh width.
 
     The baseline is the RING protocol on the same raw weights: both
     consume the identical width-invariant ``_segmented_ends``; the
@@ -492,20 +481,15 @@ def test_a2a_resample_matches_ring_all_weight_families():
     for name, w_np in _weight_families(n, rng).items():
         expected = _raw_distributed_resample(1, n, parts_np, w_np, r, "xla")
         for nd in (1, 2, 4, 8):
-            for impl in ("a2a_ring", "a2a_ring_v4", "a2a_tiled_ring"):
-                if impl != "a2a_ring" and (n // nd) % 4096 != 0:
-                    continue
-                got = _raw_distributed_resample(
-                    nd, n, parts_np, w_np, r, impl)
-                np.testing.assert_array_equal(
-                    got, expected,
-                    err_msg=f"{impl} W={nd} family={name}")
+            got = _raw_distributed_resample(
+                nd, n, parts_np, w_np, r, "a2a_ring")
+            np.testing.assert_array_equal(
+                got, expected, err_msg=f"a2a_ring W={nd} family={name}")
 
 
 def test_a2a_full_step_width_invariance_2e23(rig):
-    """The a2a protocol at the 2^23 multi-chip scale: the full shard_map
-    step (resample_impl='a2a_ring') is bitwise width-invariant — the
-    round-5 'done' gate from VERDICT next-round #1.
+    """The a2a protocol at the 2^23 multi-device scale: the full
+    shard_map step (resample_impl='a2a_ring') is bitwise width-invariant.
 
     NOT asserted: bitwise equality of the a2a and ring FULL steps.
     Different resample consumers change how XLA fuses the upstream
@@ -559,7 +543,7 @@ def test_a2a_memory_stays_local_2e24(rig):
         )
         def body(parts, w, r):
             return _distributed_systematic_resample_a2a(
-                parts, w, r, PARTICLE_AXIS, exchange="ring", merge="xla")
+                parts, w, r, PARTICLE_AXIS, exchange="ring")
         return body(parts, w, r)
 
     key = jax.random.PRNGKey(7)
@@ -612,3 +596,19 @@ def test_non_power_of_two_mesh_width(rig):
         )
         results.append(np.asarray(out.particles))
     np.testing.assert_array_equal(results[0], results[1])
+
+
+@pytest.mark.parametrize("impl", ("kernel", "a2a", "a2a_ring_v4", "a2a_tiled_ring"))
+def test_unknown_resample_impl_rejected(rig, impl):
+    """Only the ring ("xla") and the a2a protocols ("a2a_xla" ragged,
+    "a2a_ring" emulated) exist for the PF step."""
+    with pytest.raises(ValueError, match="resample_impl"):
+        make_shard_map_step(make_mesh(2), rig["f"], rig["g"], resample_impl=impl)
+
+
+def test_unknown_gsukf_resample_impl_rejected(rig):
+    from gpu_se_tpu.parallel import make_shard_map_gsukf_step
+
+    with pytest.raises(ValueError, match="resample_impl"):
+        make_shard_map_gsukf_step(make_mesh(2), rig["f"], rig["g"],
+                                  resample_impl="kernel")
